@@ -5,23 +5,28 @@ Usage:
       [--model gaussian|poisson] [--recover-prb] [--nmodes 1]
       [--checkpoint out.npz]
   python examples/reconstruct.py --target 1e-6   # deep-residual driver
-      (solvers.reconstruct: kernel tiering + split-operator refinement
-      + Anderson mixing; --piter is ignored in this mode)
+      (solvers.reconstruct: stage 1 to its floor, then split-operator
+      refinement + Anderson mixing; --piter is ignored in this mode)
 
 Equivalent of the reference's README usage example / rec_test script
-(SURVEY.md SS4 item 2), on TPU.
+(SURVEY.md SS4 item 2). Runs on the default JAX device; times are taken
+with ``jax.block_until_ready`` and include compilation.
 """
 
 import argparse
+import pathlib
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 
-from tikejax import Geometry
-from tikejax.models import make_problem
-from tikejax.solvers import reconstruct, run
-from tikejax.utils import (checkpoint, cones, device_sync, scalar,
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+
+from tikejax import Geometry  # noqa: E402
+from tikejax.models import make_problem  # noqa: E402
+from tikejax.solvers import reconstruct, run  # noqa: E402
+from tikejax.utils import (checkpoint, cones, runtime, scalar,  # noqa: E402
                            to_host)
 
 
@@ -44,6 +49,7 @@ def main():
                          "deep-residual driver instead of a fixed piter")
     ap.add_argument("--checkpoint", default=None)
     args = ap.parse_args()
+    runtime.enable_compile_cache()
 
     g = Geometry(nz=args.size, n=args.size, nscan=args.nscan, ndet=args.ndet,
                  nprb=args.nprb, nmodes=args.nmodes)
@@ -51,7 +57,7 @@ def main():
 
     psi_true, scan, prb, data = make_problem(
         jax.random.PRNGKey(0), g, poisson_photons=args.photons)
-    device_sync(data)
+    jax.block_until_ready(data)
 
     t0 = time.time()
     if args.target is not None:
@@ -59,7 +65,7 @@ def main():
             data, cones(g.psi_shape), scan, prb, g,
             target_residual=args.target, model=args.model,
             recover_prb=args.recover_prb, nchunks=args.nchunks)
-        device_sync(psi)
+        jax.block_until_ready(psi)
         dt = time.time() - t0
         ran = 0
         for name, m in stages:
@@ -75,7 +81,7 @@ def main():
             data, cones(g.psi_shape), scan, prb, g, piter=args.piter,
             model=args.model, recover_prb=args.recover_prb,
             nchunks=args.nchunks)
-        device_sync(psi)  # block_until_ready is not a barrier everywhere
+        jax.block_until_ready(psi)
         dt = time.time() - t0
 
         # stop_on_stall / target_residual may exit early: truncate the

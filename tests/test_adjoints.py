@@ -147,8 +147,10 @@ def test_scatter_is_adjoint_of_gather(rng):
 
 
 def test_fwd_deterministic(rng):
-    """Scatter/gather path is bitwise deterministic (unlike the reference's
-    atomicAdd — SURVEY.md SS3.3)."""
+    """On the CPU the scatter's summation order is fixed, so repeated
+    adjoints are bitwise identical (on a GPU the atomic scatter-add,
+    like the reference's atomicAdd, may differ in the last bits --
+    SURVEY.md SS3.3, ops/patches.py)."""
     g = GEOMS[1]
     psi, scan, prb, farp = make_inputs(rng, g, jnp.complex64)
     a = adj_raw(farp, scan, prb, g.nz, g.n)

@@ -58,7 +58,7 @@ def test_poisson_object_only(rng):
 
 
 def test_poisson_residual_metric_meaningful(rng):
-    """VERDICT r2 weak #1: the Poisson objective is negative near its
+    """The Poisson objective is negative near its
     optimum, so the residual must be measured as the excess over the
     perfect-fit objective value -- a run with a target_residual must
     execute more than one iteration, report a nonzero decreasing
@@ -98,11 +98,11 @@ def test_poisson_gaussian_residual_scales_comparable(rng):
             f"residual scales diverge at iter {i}: {rg[i]} vs {rp[i]}")
 
 
-@pytest.mark.parametrize("kern", ["xla", "fused"])
+@pytest.mark.parametrize("kern", ["xla"])
 def test_cg_state_carry_continues_trajectory(rng, kern):
     """Two chained runs with carry_state/cg_init reproduce one long run
     exactly: the second run's first Dai-Yuan step continues the same CG
-    trajectory (both solver layouts: classic on xla, merged on fused)."""
+    trajectory."""
     psi_true, scan, prb, data, psi0 = setup_problem(rng, GEOM_SMALL)
     psi_a, _, m_a = run(data, psi0, scan, prb, GEOM_SMALL, piter=8,
                         kernel=kern, carry_state=True)
@@ -225,7 +225,7 @@ def test_multimode_probe(rng):
 
 def test_poisson_noisy_data(rng):
     """Reconstruction from actually Poisson-noised counts (SURVEY.md SS4
-    item 2; VERDICT r1 missing #5): the Poisson model must converge on
+    item 2): the Poisson model must converge on
     shot-noise-limited data, and beat the flat start by a wide margin."""
     psi_true, scan, prb, data, psi0 = setup_problem(
         rng, GEOM_SMALL, poisson_photons=1e6)
@@ -282,79 +282,6 @@ def test_ntheta_batched(rng):
     assert_decreasing(metrics["minf"])
 
 
-def test_fused_kernel_cg(rng):
-    """Full CG on the fused MXU-DFT kernel path (interpret mode on CPU)
-    matches the XLA path."""
-    g = Geometry(nz=64, n=64, nscan=16, ndet=32, nprb=24)
-    psi_true, scan, prb, data, psi0 = setup_problem(rng, g)
-    psi_a, _, ma = run(data, psi0, scan, prb, g, piter=6, kernel="xla")
-    psi_b, _, mb = run(data, psi0, scan, prb, g, piter=6, kernel="fused")
-    np.testing.assert_allclose(np.asarray(ma["minf"]), np.asarray(mb["minf"]),
-                               rtol=1e-3)
-
-
-def test_fused_linesearch_option(rng):
-    """Opt-in fused line-search kernel matches the quadratic backtracking
-    path (interpret mode on CPU)."""
-    g = Geometry(nz=64, n=64, nscan=16, ndet=32, nprb=24)
-    psi_true, scan, prb, data, psi0 = setup_problem(rng, g)
-    psi_a, _, ma = run(data, psi0, scan, prb, g, piter=6, kernel="fused")
-    psi_b, _, mb = run(data, psi0, scan, prb, g, piter=6, kernel="fused",
-                       fused_linesearch=True)
-    np.testing.assert_allclose(np.asarray(ma["minf"]), np.asarray(mb["minf"]),
-                               rtol=1e-3)
-
-
-def test_memory_policies_match(rng):
-    """materialized and frameless fused paths produce the same trajectory
-    (both in interpret mode on CPU), including joint probe recovery."""
-    g = Geometry(nz=64, n=64, nscan=16, ndet=32, nprb=24, nmodes=2)
-    psi_true, scan, prb, data, psi0 = setup_problem(rng, g)
-    psi_a, _, ma = run(data, psi0, scan, prb, g, piter=6, kernel="fused",
-                       memory="materialized")
-    psi_b, _, mb = run(data, psi0, scan, prb, g, piter=6, kernel="fused",
-                       memory="frameless")
-    np.testing.assert_allclose(np.asarray(ma["minf"]), np.asarray(mb["minf"]),
-                               rtol=1e-3)
-    pa, _, ja = run(data, psi0, scan, prb * 0.9, g, piter=5, kernel="fused",
-                    memory="materialized", recover_prb=True)
-    pb, _, jb = run(data, psi0, scan, prb * 0.9, g, piter=5, kernel="fused",
-                    memory="frameless", recover_prb=True)
-    np.testing.assert_allclose(np.asarray(ja["minf"]), np.asarray(jb["minf"]),
-                               rtol=1e-3)
-    with pytest.raises(ValueError, match="memory"):
-        run(data, psi0, scan, prb, g, piter=2, memory="bogus")
-
-
-def test_merged_linesearch_matches(rng):
-    """The merged gradient/line-search evaluation (one grad_fused pass
-    per candidate, gradient reused on acceptance) follows the same
-    candidate policy as the classic search: trajectories match."""
-    g = Geometry(nz=64, n=64, nscan=16, ndet=32, nprb=24)
-    psi_true, scan, prb, data, psi0 = setup_problem(rng, g)
-    for model in ("gaussian", "poisson"):
-        # Same step policy on both sides: the candidate sequences are
-        # then identical and the trajectories must match.
-        _, _, ma = run(data, psi0, scan, prb, g, piter=8, model=model,
-                       kernel="fused", memory="frameless",
-                       step_policy="regrow")
-        _, _, mb = run(data, psi0, scan, prb, g, piter=8, model=model,
-                       kernel="fused", memory="frameless",
-                       merged_linesearch="off", step_policy="regrow")
-        np.testing.assert_allclose(np.asarray(ma["minf"]),
-                                   np.asarray(mb["minf"]), rtol=1e-3)
-        np.testing.assert_allclose(np.asarray(ma["gamma"]),
-                                   np.asarray(mb["gamma"]), rtol=1e-3)
-    # Default options (merged + 'auto' policies): still converges.
-    _, _, mt = run(data, psi0, scan, prb, g, piter=8, model="gaussian",
-                   kernel="fused", memory="frameless")
-    assert np.asarray(mt["minf"])[-1] < np.asarray(mt["minf"])[0]
-    with pytest.raises(ValueError, match="merged_linesearch"):
-        run(data, psi0, scan, prb, g, piter=2, merged_linesearch="bogus")
-    with pytest.raises(ValueError, match="step_policy"):
-        run(data, psi0, scan, prb, g, piter=2, step_policy="bogus")
-
-
 def test_stop_on_stall(rng):
     """A line search that cannot decrease (absurd step, no halvings)
     stalls every iteration; the loop exits after stop_on_stall
@@ -369,6 +296,8 @@ def test_stop_on_stall(rng):
     assert int(m2["iters_run"]) == 20
     with pytest.raises(ValueError, match="stop_on_stall"):
         run(data, psi0, scan, prb, GEOM_SMALL, piter=2, stop_on_stall=-1)
+    with pytest.raises(ValueError, match="step_policy"):
+        run(data, psi0, scan, prb, GEOM_SMALL, piter=2, step_policy="bogus")
 
 
 def test_precondition_options(rng):
@@ -440,8 +369,7 @@ def test_lbfgs_split_operator(rng):
 def test_split_operator_chunked(rng):
     """Split-operator mode (f_base) streams the frozen base farplane
     through nchunks > 1 scan chunks: the chunked run reproduces the
-    nchunks=1 trajectory (round 4 -- the refinement previously raised on
-    nchunks != 1, capping the memory regime; VERDICT r3 missing #3)."""
+    nchunks=1 trajectory."""
     from tikejax.ops.diffraction import fwd_raw
 
     psi_true, scan, prb, data, psi0 = setup_problem(rng, GEOM_SMALL)
@@ -455,11 +383,6 @@ def test_split_operator_chunked(rng):
     # Chunked accumulation reorders the f32 sums (~4e-5 relative).
     np.testing.assert_allclose(np.asarray(m1["minf"]),
                                np.asarray(m2["minf"]), rtol=1e-3)
-    # The fused-kernel chunked path (interpret mode) agrees too.
-    _, _, m3 = run(data, delta0, scan, prb, GEOM_SMALL, piter=6,
-                   f_base=f_base, kernel="fused_hp", nchunks=2)
-    np.testing.assert_allclose(np.asarray(m1["minf"])[:6],
-                               np.asarray(m3["minf"]), rtol=1e-3)
 
 
 def test_lbfgs_poisson(rng):

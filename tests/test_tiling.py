@@ -51,14 +51,13 @@ def test_tiled_matches_single(n_slabs):
         jnp.max(jnp.abs(psi_1)))
 
 
-def test_tiled_joint_probe_and_fused():
+def test_tiled_joint_probe():
     g, psi_true, scan, prb, data, psi0 = tiling_problem(2, ntheta=1)
     mesh = make_obj_mesh(2)
     psi_1, prb_1, m_1 = run(data, psi0, scan, prb * 0.9, g, piter=8,
-                            recover_prb=True, kernel="fused")
+                            recover_prb=True)
     psi_t, prb_t, m_t = run_tiled(data, psi0, scan, prb * 0.9, g, mesh,
-                                  piter=8, recover_prb=True,
-                                  kernel="fused")
+                                  piter=8, recover_prb=True)
     np.testing.assert_allclose(np.asarray(m_1["minf"]),
                                np.asarray(m_t["minf"]), rtol=1e-3)
     assert float(jnp.max(jnp.abs(prb_1 - prb_t))) < 2e-3 * float(
@@ -77,8 +76,8 @@ def test_partition_validation():
 
 def test_partition_unequal_counts_padded():
     """Unequal per-slab owner counts are padded with sentinel dummies
-    (scan row = -1, zero data) to the global maximum (VERDICT r2 next
-    #5: the v1 equal-split restriction rejected real jittered scans)."""
+    (scan row = -1, zero data) to the global maximum, so real jittered
+    scans need no equal split."""
     g, psi_true, scan, prb, data, psi0 = tiling_problem(2)
     # unbalanced: push one slab-0 position into slab 1
     bad = np.asarray(scan).copy()
@@ -93,11 +92,10 @@ def test_partition_unequal_counts_padded():
     assert (data_p[dummy] == 0).all()
 
 
-@pytest.mark.parametrize("kern", ["xla", "fused"])
+@pytest.mark.parametrize("kern", ["xla", "auto"])
 def test_tiled_jittered_scan_matches_single(kern):
     """run_tiled on a realistic jittered raster grid (unequal owner
-    counts) matches the single-device run -- the VERDICT r2 'done'
-    criterion for P3."""
+    counts) matches the single-device run."""
     from tikejax.models import raster_scan, simulate_intensities
 
     g = Geometry(nz=96, n=96, nscan=30, ndet=32, nprb=24)
@@ -156,18 +154,17 @@ def test_tiled_composed_with_scan_sharding(n_slabs, scan_shards):
         jnp.max(jnp.abs(psi_1)))
 
 
-def test_tiled_composed_joint_fused():
-    """Composition under joint probe recovery + fused kernels: probe
-    gradients psum over BOTH mesh axes."""
+def test_tiled_composed_joint():
+    """Composition under joint probe recovery: probe gradients psum over
+    BOTH mesh axes."""
     from tikejax.parallel import make_obj_scan_mesh
 
     g, psi_true, scan, prb, data, psi0 = tiling_problem(2, cols=7)
     psi_1, prb_1, m_1 = run(data, psi0, scan, prb * 0.9, g, piter=6,
-                            recover_prb=True, kernel="fused")
+                            recover_prb=True)
     mesh = make_obj_scan_mesh(2, 4)
     psi_t, prb_t, m_t = run_tiled(data, psi0, scan, prb * 0.9, g, mesh,
-                                  piter=6, recover_prb=True,
-                                  kernel="fused")
+                                  piter=6, recover_prb=True)
     np.testing.assert_allclose(np.asarray(m_1["minf"]),
                                np.asarray(m_t["minf"]), rtol=1e-3)
     assert float(jnp.max(jnp.abs(prb_1 - prb_t))) < 2e-3 * float(

@@ -1,10 +1,10 @@
-"""tikejax — TPU-native ptychography reconstruction (JAX/XLA/Pallas).
+"""tikejax — ptychography reconstruction in JAX/XLA.
 
 Brand-new framework with the capabilities of nikitinvv/libtike-cufft
 (see SURVEY.md): far-field fwd/adj diffraction operators, joint
 object+probe Dai-Yuan conjugate-gradient solver with Gaussian and Poisson
 likelihoods, backtracking line search, multi-mode probes, position
-minibatching, and scan-axis sharding across a TPU mesh.
+minibatching, and scan-axis sharding across a device mesh.
 """
 
 from tikejax.geometry import Geometry

@@ -5,7 +5,7 @@ A drop-in-shaped equivalent of the reference's solver class
 libtike/cufft/ptycho.py, SURVEY.md SS2/C5): same constructor geometry
 arguments, same ``fwd`` / ``adj`` / ``adj_probe`` / ``run`` methods --
 but accepting host numpy or device arrays (no raw GPU pointers), moving
-data complex-safely, and running the TPU-native engine underneath.
+data, and running the jitted engine underneath.
 
 Array layouts (tikejax conventions, documented in tikejax.geometry):
 ``psi (ntheta, nz, n)``, ``scan (ntheta, nscan, 2)`` float (y, x),

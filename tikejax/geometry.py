@@ -6,7 +6,7 @@ see SURVEY.md SS2/C1), extended with a first-class incoherent probe-mode axis
 (``nmodes``) which the reference handles only implicitly (SURVEY.md SS2/C5,
 BASELINE.json:10).
 
-Array layout conventions (all shapes static, TPU/XLA friendly):
+Array layout conventions (all shapes static, XLA friendly):
 
 ==============  =============================================  =========
 array           shape                                          dtype

@@ -2,12 +2,7 @@
 
 Counterpart of the reference's test/example data setup (synthetic object +
 probe + raster scan, ``data = |fwd(psi)|^2``; SURVEY.md SS4 item 2). Pure
-JAX so simulation itself runs on TPU.
-
-All generators are jitted internally: complex constants inside a jitted
-program are folded by XLA, whereas *eager* complex constants would force a
-host->device transfer of a complex buffer, which some TPU transports do not
-implement (see tikejax.utils.hostio).
+JAX, jitted, so simulation itself runs on the accelerator.
 """
 
 from __future__ import annotations
@@ -122,23 +117,8 @@ def simulate_intensities(psi: jax.Array, scan: jax.Array, prb: jax.Array,
         # smallest divisor of s that is >= want (falls back to s)
         nch = next((c for c in range(want, s + 1) if s % c == 0), s)
 
-    # Simulation runs once; use the most accurate operator available so
-    # the generated data does not inherit the fast path's f32 DFT noise
-    # (which would floor every reconstruction's residual at ~1e-3).
-    # Oversized objects (the fused forward holds the whole padded object
-    # pair in VMEM -- BASELINE.md round 4 "LIMIT FOUND") fall back to
-    # the XLA oracle, which gathers per-position patches and has no
-    # object-size cap; simulation runs once, so its lower throughput is
-    # irrelevant.
-    from tikejax.ops import pallas_fused
-
-    nz, n = psi.shape[-2:]
-    kern = ("fused_hp" if jax.default_backend() == "tpu"
-            and pallas_fused.obj_planes_fit(nz, n, prb.shape[-1], 2)
-            else "xla")
-
     def intensity(scan_c):
-        far = fwd_raw(psi, scan_c, prb, ndet, kernel=kern)
+        far = fwd_raw(psi, scan_c, prb, ndet)
         return jnp.sum(jnp.abs(far)**2, axis=2)
 
     if nch == 1:

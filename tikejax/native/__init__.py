@@ -1,6 +1,6 @@
 """Native (C++) host-runtime components, with pure-python fallbacks.
 
-See scanprep.cpp for the rationale: the TPU compute path is JAX/Pallas,
+See scanprep.cpp for the rationale: the compute path is JAX/XLA,
 but host-side scan conditioning (ingestion validation, coverage maps --
 consumed by tikejax.compat and tikejax.models.diagnostics) is native,
 like the reference's C++ runtime layer. The library is compiled on

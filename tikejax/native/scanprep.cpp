@@ -2,7 +2,7 @@
 //
 // Native counterpart of the reference's C++ runtime layer ([R]
 // src/cuda/ptychofft.cu constructor-side setup + SWIG binding, SURVEY.md
-// SS2/C1+C4): the TPU compute path is JAX/Pallas, but the host runtime
+// SS2/C1+C4): the compute path is JAX/XLA, but the host runtime
 // work -- validating and conditioning hundreds of thousands of scan
 // positions per projection before upload -- is native C++ exposed over a
 // plain C ABI (ctypes; no SWIG/pybind dependency).
@@ -41,13 +41,6 @@ int64_t scanprep_validate(const float* scan, int64_t n, int32_t nz,
     }
     return bad;
 }
-
-// NOTE: a Morton-order locality sort used to live here; it was measured
-// to have ZERO effect on the fused-kernel CG rate (57.8 raster / 57.9
-// Morton / 58.6 random iters/s on the 512^2/16k headline config,
-// within run-to-run noise) because the kernels hold the entire object
-// in VMEM -- there is no gather locality to exploit on TPU. Deleted;
-// see BASELINE.md.
 
 // Per-pixel coverage counts via 2-D difference array: O(n + nz*nx).
 // counts: (nz, nx) float32, pre-zeroed by the caller.

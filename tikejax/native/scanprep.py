@@ -96,12 +96,6 @@ def validate_scan(scan, nz: int, n: int, nprb: int):
     return out.reshape(scan.shape), bad
 
 
-# NOTE: morton_order (Z-curve locality sort) was deleted after a TPU
-# measurement showed zero effect on the fused-kernel rate -- the kernels
-# hold the whole object in VMEM, so scan order carries no locality
-# (57.8 raster / 57.9 Morton / 58.6 random iters/s; BASELINE.md).
-
-
 def overlap_counts_host(scan_int, nz: int, n: int, nprb: int):
     """Per-pixel probe coverage counts, O(nscan + nz*n) via a difference
     array (vs the O(nscan * nprb^2) device scatter)."""

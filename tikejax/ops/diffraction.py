@@ -1,6 +1,6 @@
 """Far-field ptychography diffraction operators: fwd / adj / adj_probe.
 
-TPU-native re-design of the reference operator core ``class ptychofft``
+Counterpart of the reference operator core ``class ptychofft``
 ([R] src/cuda/ptychofft.cu|.cuh; SURVEY.md SS2/C1-C3, SS3.2-3.3):
 
   fwd:        psi, scan, prb  ->  farplane
@@ -9,23 +9,26 @@ TPU-native re-design of the reference operator core ``class ptychofft``
               batched over (ntheta, nscan, nmodes).
   adj:        farplane, scan, prb  ->  psi-domain accumulation
               unitary inverse FFT, crop, conj(probe) multiply, sum over
-              modes, deterministic overlap scatter-add into the object.
+              modes, overlap scatter-add into the object.
   adj_probe:  farplane, scan, psi  ->  probe-domain accumulation
               unitary inverse FFT, crop, conj(object patch) multiply,
               sum over scan positions per mode.
 
 All three are C-linear maps and exact Hermitian adjoints of each other
 under the inner product ``<a, b> = sum(conj(a) * b)``; tests verify this
-against ``jax.vjp`` of the raw forward (SURVEY.md SS4 item 1).
+against ``jax.vjp`` of the raw forward and a float64 numpy reference
+(SURVEY.md SS4 item 1).
 
 ``fwd`` carries a ``jax.custom_vjp`` so that ``jax.grad`` of any objective
-built on it uses these hand-written adjoints (single fused scatter) rather
-than XLA's generic transpose -- and so the Pallas fast path (which has no
-AD rule of its own) is differentiable.
+built on it uses these hand-written adjoints (single scatter) rather than
+XLA's generic transpose.
 
-The ``kernel`` argument selects the implementation (see the _KERNELS
-table below): the XLA oracle, the hybrid Pallas+XLA-FFT path, or the
-fused MXU-DFT kernels at three accuracy tiers.
+There is one implementation: XLA's gather, batched FFT (cuFFT on NVIDIA
+GPUs) and scatter-add -- the structure of the reference. The ``kernel``
+argument accepts ``'auto'`` and ``'xla'``, which both select it. Each
+step runs under a stable ``jax.named_scope`` (:data:`SCOPES`), so a
+profiler trace attributes device time to gather x probe, FFT, IFFT and
+scatter-add.
 """
 
 from __future__ import annotations
@@ -39,199 +42,60 @@ from tikejax.geometry import Geometry
 from tikejax.ops import patches as _patches
 from tikejax.ops.fft import crop_from_det, fft2o, ifft2o, pad_to_det
 
-# Operator implementations, selected at trace time:
-#   'xla'      -- XLA gather/scatter + XLA FFT (oracle path; CPU/fp64).
-#   'pallas'   -- Pallas gather/scatter kernels + XLA FFT (hybrid).
-#   'fused'    -- single Pallas kernel per operator with the 2-D DFT done
-#                 as MXU matmuls inside (no intermediate nearplane;
-#                 fastest; ~1e-3 operator accuracy in f32).
-#   'fused_mp' -- same kernels, DFT matmuls via a Karatsuba complex mm
-#                 of manual bf16x3 real matmuls (~8e-6 operator
-#                 accuracy; ~53 iters/s honest full-window on the
-#                 headline -- faster than 'fused' over long runs).
-#   'fused_hp' -- same kernels, Karatsuba complex mm of full-f32 MXU
-#                 passes (~4e-7 operator accuracy, ~28 iters/s): use
-#                 when chasing the deepest residuals.
-#   'fused_mx' -- ASYMMETRIC precision: forward DFT (and therefore the
-#                 objective, the residual metric, and every line-search
-#                 accept decision) at the fused_mp bf16x3 tier, but the
-#                 adjoint/gradient IDFT at the single-pass tier. The
-#                 adjoint is a fixed linear map applied to the residual,
-#                 so its error enters the gradient as a deterministic
-#                 ~0.25% direction tilt RELATIVE to the gradient
-#                 magnitude at any depth -- it does not move the
-#                 residual floor, which the forward precision sets.
-#                 Cuts the gradient mega-kernel's MXU passes per
-#                 evaluation from 18 to 13 vs fused_mp: measured on the
-#                 512^2/16k headline 73.5 vs 55.3 iters/s with an
-#                 identical residual trajectory (BASELINE.md round 3).
-#                 NOTE: fwd/adj are consequently NOT a 1e-5-level
-#                 Hermitian pair under this tier (the pair identity
-#                 holds at the single-pass tier's accuracy); use
-#                 fused_mp/fused_hp where exact pairing matters.
-#   'fused_hx' -- same asymmetry one tier up: forward/objective at the
-#                 fused_hp full-f32 tier, gradient IDFT single-pass
-#                 (24 -> 16 MXU passes per gradient evaluation).
-#   'fused_am' -- the REVERSE asymmetry: single-pass forward/objective
-#                 (fast-tier floor) with a bf16x3 gradient IDFT. Probed
-#                 the split-refinement regime, where the gradient-
-#                 DIFFERENCE terms (L-BFGS curvature pairs) see ~0.25%
-#                 tilt against ~0.7%/iter gradient change -- and was
-#                 REJECTED as the refinement default: iterations to
-#                 1e-6 dropped only 1048 -> 1024 (the tail is intrinsic
-#                 curvature, not gradient noise) while wall time rose
-#                 23.3 -> 28.6 s (BASELINE.md round 3). Kept selectable.
-#   'auto'     -- context-dependent (round-4 split, VERDICT r3 weak #1):
-#                 OPERATOR entry points (fwd/adj/adj_probe, Ptycho, the
-#                 compat facade, jax.grad of user objectives through
-#                 `fwd`) resolve to the SYMMETRIC 'fused_mp' on TPU so
-#                 the default bundle is always an exact Hermitian pair
-#                 at its advertised ~8e-6 tier -- the reference's
-#                 operators are always a pair (SURVEY SS4 item 1), and a
-#                 silent ~2.5e-3 pair violation under defaults is a trap
-#                 for operator-level users. The SOLVER
-#                 (resolve_kernel_for_target, used by CGOptions
-#                 normalization) resolves to the asymmetric 'fused_mx',
-#                 where the measured A/Bs justify the tilt: fused_mp
-#                 beat the single-pass tier 56.2 vs 41.5 iters/s
-#                 full-window (round 2), and fused_mx beat fused_mp
-#                 73.5 vs 55.3 with an IDENTICAL residual trajectory
-#                 (round 3; res 2.82e-5 @ 400 iters and 9.0e-6 @ 1024
-#                 both). 'xla' everywhere off-TPU.
-_KERNELS = ("xla", "pallas", "fused", "fused_mp", "fused_hp", "fused_mx",
-            "fused_hx", "fused_am", "auto")
+KERNELS = ("auto", "xla")
+
+# Kernel names of earlier releases. Their hand-written kernels were
+# removed; asking for one raises instead of silently running another path.
+REMOVED_KERNELS = ("pallas", "fused", "fused_mp", "fused_hp", "fused_mx",
+                   "fused_hx", "fused_am")
+
+# Names of the operator steps as they appear in a profiler trace.
+SCOPES = ("gather_probe", "fft", "ifft", "scatter_add", "probe_reduce")
 
 
-# Practical relative-residual floors of the fused accuracy tiers on the
-# headline configs (BASELINE.md time-to-residual table), with margin:
-# convergence stalls well before the raw operator error because CG keeps
-# re-evaluating a noisy objective near its floor.
-FUSED_RESIDUAL_FLOOR = 5e-3      # 'fused'    (~2.5e-3 operator error)
-# 'fused_mp' (Karatsuba bf16x3, ~8e-6 operator error): measured on the
-# 512^2/16k headline, residual 3.0e-5 @ 385 iters, 8.6e-6 @ 1024 and
-# still descending -- 1e-5 is reachable with margin. 'fused_mx' SHARES
-# this floor: its forward/objective half is the same bf16x3 DFT, and
-# the measured trajectories are identical (9.0e-6 @ 1024 both).
-FUSED_MP_RESIDUAL_FLOOR = 1e-5
+def resolve_kernel(kernel: str) -> str:
+    """Validate ``kernel`` and return the implementation it selects
+    (always ``'xla'``)."""
+    if kernel in REMOVED_KERNELS:
+        raise ValueError(
+            f"kernel {kernel!r} was removed together with its hand-written "
+            "kernels; the XLA path (kernel='auto' or 'xla') is the only "
+            "operator implementation")
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of "
+                         f"{KERNELS}")
+    return "xla"
 
 
-def resolve_kernel(kernel: str, backend: str | None = None) -> str:
-    """Resolve 'auto' for OPERATOR-level use (fwd/adj/adj_probe, Ptycho,
-    compat, jax.grad through `fwd`): the symmetric 'fused_mp' tier, so the
-    default operator bundle is an exact Hermitian fwd/adj pair at its
-    advertised ~8e-6 accuracy (SURVEY SS4 item 1 -- the load-bearing
-    property of the reference's operators). The solver resolves 'auto'
-    separately via :func:`resolve_kernel_for_target`, where the faster
-    asymmetric 'fused_mx' tier is measured-safe. `backend` overrides
-    ``jax.default_backend()`` (tests)."""
-    if kernel == "auto":
-        backend = backend or jax.default_backend()
-        return "fused_mp" if backend == "tpu" else "xla"
-    return kernel
-
-
-def resolve_kernel_for_target(kernel: str, target_residual: float,
-                              backend: str | None = None) -> str:
-    """Resolve 'auto' honouring a requested relative-residual target.
-    Deep targets escalate to the full-precision DFT tier; SHALLOW targets
-    (above the fast tier's floor) de-escalate to the single-pass preview
-    tier, which reaches them soonest; everything else -- including the
-    no-target default -- gets 'fused_mx', the tier the repo's own
-    full-trajectory A/Bs show dominates (round 2: fused_mp beat the old
-    'fused' default 56.2 vs 41.5 iters/s; round 3: fused_mx beat
-    fused_mp 73.5 vs 55.3 with an identical trajectory).
-    Explicit kernel choices are returned unchanged. Targets are on the
-    solver's relative-residual scale, which is comparable across the
-    gaussian and poisson models (likelihoods.poisson_perfect_minf).
-    NOTE this is the SOLVER's 'auto' resolution: it may pick the
-    asymmetric fused_mx tier, whose fwd/adj are deliberately not a
-    deep-tier Hermitian pair; operator-level entry points resolve via
-    :func:`resolve_kernel` (symmetric) instead."""
-    backend = backend or jax.default_backend()
-    if kernel != "auto" or backend != "tpu":
-        return resolve_kernel(kernel, backend)
-    if target_residual and target_residual <= FUSED_MP_RESIDUAL_FLOOR:
-        return "fused_hp"
-    if target_residual and target_residual > FUSED_RESIDUAL_FLOOR:
-        return "fused"
-    return "fused_mx"
-
-
-def _fused_precision(kernel: str):
-    # The multi-pass tiers use the Karatsuba/Gauss 3-multiplication
-    # complex-matmul form: measured +18% (fused_mp, 30.2 -> 35.7 iters/s)
-    # and +27% (fused_hp, 16.6 -> 21.0) on the 512^2/16k headline with
-    # operator accuracy unchanged (mp 4.5e-6 -> 7.8e-6, hp 3.75e-7 ->
-    # 3.79e-7). The single-pass 'fused' tier keeps the schoolbook form:
-    # Karatsuba measured no faster there (63.6 vs 63.1) and costs
-    # accuracy (2.5e-3 -> 4.1e-3). See benchmarks/kernel_ab.py.
-    if kernel in ("fused_hp", "fused_hx"):
-        return "kara_hp"
-    if kernel in ("fused_mp", "fused_mx"):
-        return "kara_x3"
-    # The single-pass 'fused' tier's Karatsuba variant (measured no
-    # faster, worse accuracy) stays reachable for A/B sweeps by passing
-    # precision='kara' to the pallas_fused entry points directly -- the
-    # former TIKEJAX_FUSED_KARA trace-time env read is gone (VERDICT r3
-    # weak #4: cached jits silently ignored mid-process changes).
-    return None
-
-
-def _fused_adj_precision(kernel: str):
-    """Precision of the adjoint-side (IDFT) matmuls in the gradient
-    paths. Identical to the forward precision for the symmetric tiers;
-    the asymmetric 'fused_mx'/'fused_hx' tiers run the adjoint at the
-    single-pass tier (see the _KERNELS table: a deterministic
-    ~0.25%-relative gradient-direction tilt in exchange for 5 of the 18
-    / 8 of the 24 MXU passes per gradient evaluation). Returns the
-    EXPLICIT 'bf16' tag (one bf16 MXU pass per real matmul, measured
-    equivalent to Precision.DEFAULT) rather than None: None means "same
-    as the forward precision" in the kernel wrappers' fallback chain."""
-    if kernel in ("fused_mx", "fused_hx"):
-        return "bf16"
-    if kernel == "fused_am":
-        return "kara_x3"
-    return _fused_precision(kernel)
-
-
-def _nearplane_fwd(psi, scan_int, prb, kernel):
+def _nearplane_fwd(psi, scan_int, prb):
     """Gather patches at scan offsets and multiply by all probe modes:
     (t, s, m, nprb, nprb)."""
-    if kernel == "pallas":
-        from tikejax.ops import pallas_kernels
-
-        return pallas_kernels.gather_probe_mul(psi, scan_int, prb)
-    nprb = prb.shape[-1]
-    patches = _patches.gather_patches(psi, scan_int, nprb)
-    return patches[:, :, None, :, :] * prb[:, None, :, :, :]
+    with jax.named_scope("gather_probe"):
+        nprb = prb.shape[-1]
+        patches = _patches.gather_patches(psi, scan_int, nprb)
+        return patches[:, :, None, :, :] * prb[:, None, :, :, :]
 
 
-def _adj_object(nearplane, scan_int, prb, nz, n, kernel):
+def _adj_object(nearplane, scan_int, prb, nz, n):
     """conj(prb)-multiply, mode-sum, overlap scatter-add into the object."""
-    if kernel == "pallas":
-        from tikejax.ops import pallas_kernels
-
-        return pallas_kernels.scatter_conj_probe(nearplane, scan_int, prb,
-                                                 nz, n)
-    patches = jnp.sum(jnp.conj(prb)[:, None, :, :, :] * nearplane, axis=2)
-    return _patches.scatter_patches_add(patches, scan_int, nz, n)
+    with jax.named_scope("scatter_add"):
+        patches = jnp.sum(jnp.conj(prb)[:, None, :, :, :] * nearplane,
+                          axis=2)
+        return _patches.scatter_patches_add(patches, scan_int, nz, n)
 
 
-def _adj_probe_acc(nearplane, scan_int, psi, kernel):
+def _adj_probe_acc(nearplane, scan_int, psi):
     """conj(patch)-multiply and reduce over scan positions into the probe."""
-    if kernel == "pallas":
-        from tikejax.ops import pallas_kernels
-
-        return pallas_kernels.adj_probe_reduce(nearplane, scan_int, psi)
-    nprb = nearplane.shape[-1]
-    patches = _patches.gather_patches(psi, scan_int, nprb)
-    return jnp.sum(jnp.conj(patches)[:, :, None, :, :] * nearplane, axis=1)
+    with jax.named_scope("probe_reduce"):
+        nprb = nearplane.shape[-1]
+        patches = _patches.gather_patches(psi, scan_int, nprb)
+        return jnp.sum(jnp.conj(patches)[:, :, None, :, :] * nearplane,
+                       axis=1)
 
 
-def _check_kernel(kernel: str) -> None:
-    if kernel not in _KERNELS:
-        raise ValueError(f"unknown kernel {kernel!r}; expected one of "
-                         f"{_KERNELS}")
+def _nearplane_adj(farplane, nprb):
+    with jax.named_scope("ifft"):
+        return crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
 
 
 # ---------------------------------------------------------------------------
@@ -243,47 +107,29 @@ def _check_kernel(kernel: str) -> None:
 def fwd_raw(psi: jax.Array, scan: jax.Array, prb: jax.Array, ndet: int,
             kernel: str = "xla") -> jax.Array:
     """Forward diffraction. Returns ``(ntheta, nscan, nmodes, ndet, ndet)``."""
-    _check_kernel(kernel)
-    kernel = resolve_kernel(kernel)
+    resolve_kernel(kernel)
     scan_int = _patches.scan_to_int(scan)
-    if kernel.startswith("fused"):
-        from tikejax.ops import pallas_fused
-
-        return pallas_fused.fwd(psi, scan_int, prb, ndet,
-                                precision=_fused_precision(kernel))
-    nearplane = _nearplane_fwd(psi, scan_int, prb, kernel)  # (t, s, m, p, p)
-    return fft2o(pad_to_det(nearplane, ndet))
+    nearplane = _nearplane_fwd(psi, scan_int, prb)  # (t, s, m, p, p)
+    with jax.named_scope("fft"):
+        return fft2o(pad_to_det(nearplane, ndet))
 
 
 def adj_raw(farplane: jax.Array, scan: jax.Array, prb: jax.Array, nz: int,
             n: int, kernel: str = "xla") -> jax.Array:
     """Adjoint w.r.t. the object. Returns ``(ntheta, nz, n)``."""
-    _check_kernel(kernel)
-    kernel = resolve_kernel(kernel)
-    nprb = prb.shape[-1]
+    resolve_kernel(kernel)
     scan_int = _patches.scan_to_int(scan)
-    if kernel.startswith("fused"):
-        from tikejax.ops import pallas_fused
-
-        return pallas_fused.adj(farplane, scan_int, prb, nz, n,
-                                precision=_fused_adj_precision(kernel))
-    nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
-    return _adj_object(nearplane, scan_int, prb, nz, n, kernel)
+    nearplane = _nearplane_adj(farplane, prb.shape[-1])
+    return _adj_object(nearplane, scan_int, prb, nz, n)
 
 
 def adj_probe_raw(farplane: jax.Array, scan: jax.Array, psi: jax.Array,
                   nprb: int, kernel: str = "xla") -> jax.Array:
     """Adjoint w.r.t. the probe. Returns ``(ntheta, nmodes, nprb, nprb)``."""
-    _check_kernel(kernel)
-    kernel = resolve_kernel(kernel)
+    resolve_kernel(kernel)
     scan_int = _patches.scan_to_int(scan)
-    if kernel.startswith("fused"):
-        from tikejax.ops import pallas_fused
-
-        return pallas_fused.adj_probe(farplane, scan_int, psi, nprb,
-                                      precision=_fused_adj_precision(kernel))
-    nearplane = crop_from_det(ifft2o(farplane), nprb)  # (t, s, m, p, p)
-    return _adj_probe_acc(nearplane, scan_int, psi, kernel)
+    nearplane = _nearplane_adj(farplane, nprb)
+    return _adj_probe_acc(nearplane, scan_int, psi)
 
 
 # ---------------------------------------------------------------------------
@@ -334,16 +180,16 @@ fwd.defvjp(_fwd_fwd, _fwd_bwd)
 class Ptycho:
     """Geometry-bound diffraction operator bundle.
 
-    The TPU-native counterpart of the reference's ``ptychofft`` object
-    (SURVEY.md SS3.4) -- except there is nothing to allocate or free: the
-    geometry is static metadata and XLA owns all buffers.
+    The counterpart of the reference's ``ptychofft`` object (SURVEY.md
+    SS3.4) -- except there is nothing to allocate or free: the geometry
+    is static metadata and XLA owns all buffers.
 
     >>> op = Ptycho(Geometry(nz=256, n=256, nscan=100, ndet=64, nprb=64))
     >>> farplane = op.fwd(psi, scan, prb)
     """
 
     def __init__(self, geometry: Geometry, kernel: str = "auto"):
-        _check_kernel(kernel)
+        resolve_kernel(kernel)
         self.g = geometry
         self.kernel = kernel
 

@@ -1,9 +1,10 @@
 """Batched 2-D unitary FFTs for far-field propagation.
 
-TPU-native replacement for the reference's single batched cuFFT plan
+Counterpart of the reference's single batched cuFFT plan
 (``cufftPlanMany`` rank-2 C2C over ``ntheta*nscan`` frames, [R]
-src/cuda/ptychofft.cu ctor; SURVEY.md SS2/C3). XLA batches and fuses the
-FFT over all leading axes -- there is no plan object to manage.
+src/cuda/ptychofft.cu ctor; SURVEY.md SS2/C3). XLA batches the FFT over
+all leading axes and hands it to cuFFT on an NVIDIA GPU -- there is no
+plan object to manage.
 
 ``norm='ortho'`` makes the transform unitary (the reference scales by
 ``1/sqrt(ndet^2)``, SURVEY.md SS2/C1 fwd), so ``ifft2o`` is the exact
@@ -17,9 +18,8 @@ import jax.numpy as jnp
 
 
 def _unitary_scale(x: jax.Array) -> float:
-    # Static Python scalar (shapes are static under XLA): avoids the device
-    # reduction jnp's norm='ortho' performs, which both breaks eager use on
-    # restricted TPU transports and defeats constant folding.
+    # Static Python scalar (shapes are static under XLA), folded into the
+    # surrounding fusion as a constant.
     h, w = x.shape[-2], x.shape[-1]
     return 1.0 / float(h * w) ** 0.5
 

@@ -1,14 +1,12 @@
 """Patch gather / overlap scatter-add over scan positions (XLA path).
 
-TPU-native replacement for the reference's CUDA gather and atomicAdd
-scatter kernels ([R] src/cuda/ptychofft.cu, SURVEY.md SS2/C2). Unlike the
-reference's hardware atomics, the XLA scatter-add here is *deterministic*:
-``.at[iy, ix].add`` lowers to a single XLA scatter with a fixed reduction
-order, so repeated runs are bitwise identical.
-
-A Pallas fast path with the same semantics lives in
-:mod:`tikejax.ops.pallas_kernels`; this module is the reference oracle and
-the CPU/fp64 test path.
+Counterpart of the reference's CUDA gather and atomicAdd scatter kernels
+([R] src/cuda/ptychofft.cu, SURVEY.md SS2/C2), and the operator layer's
+only implementation. ``.at[iy, ix].add`` lowers to one XLA scatter. On
+an NVIDIA GPU that scatter accumulates overlapping patches with atomic
+adds, as the reference does, so the order of the float sums -- and with
+it the last bits of the result -- can change from run to run. On the CPU
+the order is fixed.
 
 Scan positions are float (y, x) top-left corners, floored to integer pixel
 offsets exactly like the reference's C cast of float scan coordinates
@@ -19,12 +17,11 @@ breaking fwd/adj adjointness -- use :func:`check_scan_in_bounds` in host
 code when ingesting untrusted positions.
 
 Exception: a scan ROW < 0 is the documented sentinel for a **masked
-dummy position** (used by tikejax.parallel.tiling to pad unequal
-per-slab position counts to a static shape). Every operator here -- and
-every Pallas kernel (ops.pallas_kernels._pos_ok / ops.pallas_fused) --
-treats such positions as contributing exactly zero: gathers return zero
-patches, scatters add nothing, the illumination/power preconditioner
-maps skip them. fwd/adj remain exact adjoint pairs under the mask.
+dummy position** (used by tikejax.parallel to pad unequal per-shard
+position counts to a static shape). Every operator here treats such
+positions as contributing exactly zero: gathers return zero patches,
+scatters add nothing, the illumination/power preconditioner maps skip
+them. fwd/adj remain exact adjoint pairs under the mask.
 """
 
 from __future__ import annotations
@@ -90,25 +87,12 @@ def _index_grids(scan_int: jax.Array, nprb: int):
     return iy, ix
 
 
-def _zeros(shape, dtype):
-    """Zeros that avoid eager complex-constant creation (restricted TPU
-    transports cannot upload complex constants; building the complex value
-    from two real zero planes stays device-side and folds under jit)."""
-    if jnp.issubdtype(dtype, jnp.complexfloating):
-        import numpy as np
-
-        real = jnp.zeros(shape, np.empty(0, dtype).real.dtype)
-        return lax.complex(real, real)
-    return jnp.zeros(shape, dtype)
-
-
 def scatter_patches_add(patches: jax.Array, scan_int: jax.Array, nz: int,
                         n: int) -> jax.Array:
     """Adjoint of :func:`gather_patches`: sum patches into a zero object.
 
     Overlapping patches accumulate (the reference resolves this with
-    atomicAdd, nondeterministically; this scatter is deterministic --
-    SURVEY.md SS3.3, SS5 "race detection" row).
+    atomicAdd; so does XLA's scatter on a GPU -- SURVEY.md SS3.3).
 
     Args:
       patches: ``(ntheta, nscan, nprb, nprb)``.
@@ -124,7 +108,7 @@ def scatter_patches_add(patches: jax.Array, scan_int: jax.Array, nz: int,
     iy, ix = _index_grids(jnp.maximum(scan_int, 0), nprb)
 
     def per_angle(p_t, iy_t, ix_t):
-        return _zeros((nz, n), p_t.dtype).at[iy_t, ix_t].add(p_t)
+        return jnp.zeros((nz, n), p_t.dtype).at[iy_t, ix_t].add(p_t)
 
     return jax.vmap(per_angle)(patches, iy, ix)
 

@@ -1,4 +1,4 @@
-"""Parallel execution over TPU meshes (shard_map + XLA collectives)."""
+"""Parallel execution over device meshes (shard_map + XLA collectives)."""
 
 from tikejax.parallel.sharding import make_mesh, run_sharded, shard_problem
 from tikejax.parallel.tiling import (make_full_mesh, make_obj_mesh,

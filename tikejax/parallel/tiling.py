@@ -1,7 +1,7 @@
 """P3 object-domain tiling: shard the object grid with halo exchange.
 
 The stretch parallelism axis from SURVEY.md SS5: when the object
-outgrows one chip's HBM (giant fields of view), shard its ROW axis into
+outgrows one device's memory (giant fields of view), shard its ROW axis into
 equal slabs over a 1-D ('obj',) mesh. Each device holds its owned rows
 plus ``nprb - 1`` halo rows below (the probe-window overlap into the
 next slab) and the scan positions whose window TOP row falls in its
@@ -15,7 +15,7 @@ reconstruction. Per CG iteration the only collectives are
 
 so communication is O(n * nprb) per step while compute is O(nscan/D *
 ndet^2 * nprb) -- the surface-to-volume ratio that makes domain tiling
-scale. The fused Pallas kernels run unchanged on each local slab.
+scale. The operators run unchanged on each local slab.
 
 Positions may split UNEQUALLY across slabs (jittered real-world scans
 do): `partition_problem` pads every slab's position list to the global
@@ -189,11 +189,7 @@ def run_tiled(data, psi0, scan, prb0, geometry: Geometry, mesh: Mesh,
     Returns:
       (psi, prb, metrics) with psi the stitched (ntheta, nz, n) object.
     """
-    if options is None:
-        options = _cg.CGOptions(**kw)
-    elif kw:
-        options = dataclasses.replace(options, **kw)
-    options = _cg.normalize_options(options)
+    options = _cg.normalize_options(_cg.make_options(options, **kw))
     g = geometry
     names = mesh.axis_names
     if "obj" not in names:
@@ -250,16 +246,14 @@ def run_tiled(data, psi0, scan, prb0, geometry: Geometry, mesh: Mesh,
                                          psi_l[0], scan_l[0], prb_l)
         return psi[None], prb, metrics
 
-    def sharded(check_vma):
+    def sharded():
         return jax.shard_map(
             body, mesh=mesh,
             in_specs=(pos_P, psi_P, pos_P, P(theta_axis)),
-            out_specs=(psi_P, P(theta_axis), P()),
-            check_vma=check_vma,
-        )
+            out_specs=(psi_P, P(theta_axis), P()))
 
-    from tikejax.parallel.sharding import _SHARDED_CACHE, _call_checked
-    psi_s, prb, metrics = _call_checked(
+    from tikejax.parallel.sharding import _SHARDED_CACHE, _call_memoized
+    psi_s, prb, metrics = _call_memoized(
         sharded, data_p, psi_slabs, scan_loc, prb0,
         cache=_SHARDED_CACHE, key=("tiled", mesh, g_local, opts))
     return jax.jit(stitch, static_argnums=1)(psi_s, owned), prb, metrics

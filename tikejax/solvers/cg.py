@@ -1,15 +1,15 @@
 """Joint object+probe Dai-Yuan conjugate-gradient ptychography solver.
 
-TPU-native re-design of the reference CG loop ([R] libtike/cufft/ptycho.py
+Re-design of the reference CG loop ([R] libtike/cufft/ptycho.py
 ``run``; SURVEY.md SS2/C5, SS3.1). Same algorithm family -- Dai-Yuan
 nonlinear CG with backtracking line search, Gaussian/Poisson likelihoods,
 optional joint probe recovery, multi-mode probes, position minibatching --
 but the *entire* reconstruction runs inside a single ``jax.jit`` as a
 ``lax.fori_loop``: zero host round-trips per iteration, versus the
 reference's 3-5 host<->device crossings (SURVEY.md SS3.1, north star in
-BASELINE.json:5).
+BASELINE.json).
 
-Key departures from the reference, justified by the TPU execution model:
+Key departures from the reference, justified by XLA's execution model:
 
 * **Line search on quadratic sufficient statistics.** The forward operator
   is linear in psi (and in prb), so ``|G(psi + gamma*d)|^2`` per pixel is
@@ -20,7 +20,6 @@ Key departures from the reference, justified by the TPU execution model:
   reference exploits linearity the same way but re-reads complex frames).
   The backtracking itself is a ``lax.while_loop`` -- on device, data
   independent of the host.
-* **Deterministic gradients** via the race-free scatter-add (ops layer).
 * **Position minibatching inside jit**: ``nchunks > 1`` streams scan
   chunks through a ``lax.scan``, never materialising the full farplane --
   the gradient pass and the line-search statistics are accumulated
@@ -36,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
@@ -62,16 +60,9 @@ class CGOptions:
       max_halvings: bound on backtracking steps (then gamma=0, no move).
       nchunks: scan-position minibatching factor; >1 streams chunks through
         lax.scan without materialising the full farplane. Must divide nscan.
-      kernel: operator implementation -- 'auto' (default: fused_mx on
-        TPU, the tier that dominates full trajectories; a shallow
-        target_residual selects the 'fused' preview tier, a deep one
-        'fused_hp'), 'fused' (one Pallas kernel per operator, MXU DFT,
-        fastest per pass at ~1e-3 accuracy), 'fused_mp' (Karatsuba
-        bf16x3 DFT, ~8e-6), 'fused_mx'/'fused_hx' (asymmetric: mp/hp
-        forward + objective, single-pass gradient IDFT -- mp/hp-grade
-        floors at a fraction of the MXU work), 'fused_hp' (full-f32
-        for the deepest residuals), 'pallas' (Pallas gather/scatter +
-        XLA FFT), 'xla' (oracle).
+      kernel: operator implementation -- 'auto' (default) or 'xla',
+        which both select the XLA gather / batched FFT / scatter path
+        (see tikejax.ops.diffraction; removed kernel names raise).
       axis_name: mesh axis name for scan-sharded execution (psum of scalars
         and gradients); None for single-device runs.
       theta_axis_name: mesh axis name sharding the (embarrassingly
@@ -116,9 +107,7 @@ class CGOptions:
     # 1 + lowk_boost*k0^2/(k0^2 + |k|^2) that amplifies smooth gradient
     # components (object-only runs, single device); 'none' disables.
     # 'illum_lowk' is OPT-IN only: it accelerated a sparse-overlap toy
-    # (5x lower residual at 48 iters, 64 positions on 96^2) but measured
-    # ~4x SLOWER on the dense-overlap headline config (112.7 s / 3008
-    # iters vs 29.7 s / 1761 to 1e-6 -- BASELINE.md round 3); on dense
+    # (5x lower residual at 48 iters, 64 positions on 96^2); on dense
     # scans the illumination map already equalizes the spectrum.
     precondition: str = "illum"
     # 'illum_lowk' filter parameters: boost amplitude and the crossover
@@ -130,12 +119,8 @@ class CGOptions:
     # step_policy below.
     adaptive_step: bool = True
     # Warm-start regrow factor: each iteration's line search starts from
-    # min(step0, step_growth * previous accepted step). Measured on the
-    # headline: 4.0 optimal (factor 2 slowed convergence to the floor,
-    # 477 vs 273 iterations). A CGOptions field -- not an env knob -- so
-    # it participates in the jit cache key (VERDICT r2 advice: the old
-    # TIKEJAX_GROW env var was read at trace time and silently ignored
-    # mid-process).
+    # min(step0, step_growth * previous accepted step). A CGOptions
+    # field -- not an env knob -- so it participates in the jit cache key.
     step_growth: float = 4.0
     # Warm-start growth policy:
     #   'regrow' -- start from min(step0, 4x previous step) every
@@ -143,20 +128,12 @@ class CGOptions:
     #     worthwhile for convergence speed per iteration.
     #   'track'  -- grow 4x only when the previous start was accepted
     #     outright; after halvings, track the previous step exactly;
-    #     after a total failure, keep the previous start. MEASURED
-    #     WORSE end-to-end despite fewer early halvings: the step
-    #     decays smoothly to epsilon at the residual floor without ever
-    #     failing outright, so stop_on_stall never fires and the deep
-    #     phase grinds (4.09 evals/iter, mp tier convergence degraded).
-    #     Kept selectable for experimentation.
+    #     after a total failure, keep the previous start. The step can
+    #     decay smoothly to epsilon at the residual floor without ever
+    #     failing outright, so stop_on_stall may never fire. Kept
+    #     selectable for experimentation.
     #   'auto'   -- 'regrow'.
     step_policy: str = "auto"
-    # Evaluate the whole line-search candidate set in one fused Pallas
-    # pass instead of quadratic-statistics backtracking. Measured SLOWER
-    # on v5e (the K per-pixel sqrt evaluations are VPU-bound: 30 vs 39
-    # iters/s on the headline config) and VMEM-heavier for many modes;
-    # kept as an option for bandwidth-starved regimes.
-    fused_linesearch: bool = False
     # Stop early once the relative residual drops to this value
     # (0 disables: the loop always runs piter iterations). The residual
     # is sqrt(max(minf - minf_perfect, 0) / sum(data)): for gaussian
@@ -166,17 +143,15 @@ class CGOptions:
     # likelihoods.poisson_perfect_minf).
     # With a target set the loop is a lax.while_loop; metrics entries for
     # unexecuted iterations stay 0 and metrics['iters_run'] records the
-    # actual count. 'auto' kernel selection honours the target (deep
-    # targets escalate to the fused_mp/fused_hp accuracy tiers).
+    # actual count.
     target_residual: float = 0.0
     # Search-direction rule for the OBJECT step: 'auto' (default)
     # resolves to 'dy' here in run() -- a standalone solve must stay
     # globalization-safe (an L-BFGS-warmed FLAT start measurably lands
-    # in bad local basins, BASELINE.md round 3) -- while
+    # in bad local basins on the CPU A/B) -- while
     # solvers.reconstruct resolves it to 'lbfgs' for the split
-    # refinement segments, where the basin is settled and the TPU A/B
-    # shows L-BFGS dominating (1e-6: 23.2 s / 1048 iters vs 29.0 s /
-    # 1699 with Dai-Yuan, round 3). 'dy' is the reference's Dai-Yuan
+    # refinement segments, where the basin is settled. 'dy' is the
+    # reference's Dai-Yuan
     # nonlinear CG ([R] libtike/cufft/ptycho.py,
     # SURVEY.md SS2/C5); 'lbfgs' / 'lbfgs:<m>' is two-loop L-BFGS on
     # the preconditioned gradient (ring of the last m (s, y) pairs,
@@ -197,8 +172,7 @@ class CGOptions:
     # along the search directions even after max_halvings backtracking
     # steps, i.e. the solver is at its (operator-accuracy) floor.
     # Without this, every post-floor iteration burns max_halvings + 1
-    # objective evaluations making no progress (measured 150 ms/iter vs
-    # ~3 convergent on the headline config). 0 disables.
+    # objective evaluations making no progress. 0 disables.
     stop_on_stall: int = 2
     # Line-search policy:
     #   'interp' -- backtracking, but on the FIRST rejection take one
@@ -208,46 +182,16 @@ class CGOptions:
     #     clipped to [shrink^2, shrink] * gamma0, replaces the next
     #     halving candidate; plain halving continues from there if
     #     still rejected. Saves ~1 evaluation on the 2-halving pattern
-    #     the 4x regrow produces (headline 36.4 -> 45-51 iters/s) but
-    #     accepts slightly smaller steps than pure halving would, which
-    #     measurably slows DEEP-residual descent (fused_mp residual
-    #     1.8e-4 vs 7.6e-5 at 240 iterations).
+    #     the 4x regrow produces, but accepts slightly smaller steps
+    #     than pure halving would.
     #   'backtracking' -- reference-style pure halving until decrease:
     #     best per-iteration descent, more evaluations.
     #   'parabolic' -- backtracking + a vertex refinement of the
-    #     ACCEPTED step (~2 extra evaluations). Measured: HURTS the
-    #     deep fp32 tail (the vertex chases objective noise; 8.6e-5 vs
-    #     1.7e-5 at 512 fused_hp iters); kept opt-in.
-    #   'auto' (default) -- 'backtracking' on the deep-residual tiers
-    #     (fused_mp / fused_hp and the asymmetric mx/hx), 'interp'
-    #     otherwise. The mx rule is MEASURED, not inherited: the
-    #     round-4 headline A/B (benchmarks/ls_ab.py, 3 consistent
-    #     windows each) put interp-on-mx at 40.5 iters/s vs 74.9
-    #     backtracking WITH a worse trajectory (res@400 7.7e-5 vs
-    #     2.8e-5) -- the clipped model steps under-step so the 4x
-    #     regrow re-rejects every iteration, doubling evals/iter.
+    #     ACCEPTED step (~2 extra evaluations; the vertex can chase
+    #     objective noise in a deep tail); kept opt-in.
+    #   'auto' (default) -- 'interp'. Whether backtracking wins on a
+    #     GPU is not measured yet (ROADMAP).
     linesearch: str = "auto"
-    # Farplane policy on the fused kernel paths: 'frameless' computes
-    # every farplane frame in VMEM inside the kernels and NEVER
-    # materializes it (mandatory for large nscan x nmodes, and the only
-    # regime the merged gradient/line-search applies to -- measured
-    # faster at every size tested); 'materialized' keeps G(psi) in HBM
-    # between the forward and the gradient tail; 'auto' = frameless.
-    memory: str = "auto"
-    # Merged gradient/line-search evaluation ('auto' or 'off'). In the
-    # frameless regime the gradient mega-kernel returns (grad, minf) in
-    # ONE pass, so each backtracking candidate is evaluated WITH its
-    # gradient and, on acceptance (the common case: ~1.02 evals/iter
-    # with the adaptive warm start), that gradient IS the next
-    # iteration's gradient -- the separate per-iteration gradient pass
-    # disappears: ~1 fused pass/iter instead of ~2. Identical candidate
-    # sequence and accept/reject policy as the classic search; rejected
-    # candidates just pay a gradient-sized pass instead of an
-    # objective-sized one. Applies when frameless + fused kernels +
-    # nchunks == 1 + no probe recovery + backtracking or interp line
-    # search (the condition in _Engine.__init__ -- interp is the
-    # resolved default on the fast tier, so the headline runs merged).
-    merged_linesearch: str = "auto"
     # Return the terminal CG carry (direction, previous gradient,
     # accepted step, step start) in metrics['cg_state'] so a follow-up
     # run can continue the SAME conjugate-gradient trajectory via
@@ -264,67 +208,9 @@ class CGOptions:
     # The same consistency argument as carry_state applies: the re-base
     # shifts the objective by the fast tier's operator error at the old
     # ||delta||, so carried pairs are only as good as segments are
-    # short. Measured on TPU (tail_ab ring256 vs default256, 3
-    # consistent samples each side): the ring cuts ITERATIONS at both
-    # depths (1e-6: 1021 vs 1048, 6 vs 7 stages; 3e-7: 1692 vs 1775)
-    # but the 3e-7 wall is consistently WORSE (47.7-47.8 s vs 39.2 --
-    # variant-correlated, not transport noise): the stale cross-rebase
-    # pairs mislead the natural-step line search exactly where steps
-    # are tiny, costing more evaluations per iteration than the saved
-    # iterations return. At 1e-6 it is wall-neutral (33.2 vs 33.7 s
-    # within one transport mode). Kept opt-in, default off.
+    # short: stale cross-rebase pairs can mislead the natural-step line
+    # search exactly where steps are tiny. Kept opt-in, default off.
     carry_lbfgs: bool = False
-    # Object ROW-SLAB streaming for oversized objects (ops.slabs): the
-    # fused kernels hold the whole padded object (+ the gradient
-    # accumulator) in VMEM, capping the object height (~768 rows at
-    # 512+ columns on v5e -- BASELINE.md round 4 "LIMIT FOUND"). With
-    # obj_slabs = D > 1 every mega-kernel call becomes a lax.scan over
-    # D row slabs of the object (positions pre-sorted by owner slab,
-    # sentinel-padded -- run() applies the host partition); identical
-    # FLOPs, one kernel compile, object size bound by HBM instead of
-    # VMEM (width still capped: the slab keeps full rows). run()
-    # AUTO-selects the smallest fitting D when the object overflows the
-    # VMEM budget, so large single-chip objects just work; set
-    # explicitly to force. Requires the frameless fused path with
-    # nchunks == 1 and no mesh axes (shard a mesh with
-    # parallel.run_tiled instead).
-    obj_slabs: int = 1
-    # The problem is ALREADY slab-partitioned: the caller applied
-    # ops.slabs.partition_slabs itself and run() must NOT re-partition.
-    # The deep driver (solvers.tiered.reconstruct) partitions ONCE per
-    # reconstruction and reuses the partition across every refinement
-    # segment -- re-partitioning per cg.run call would re-gather the
-    # full data array on device (4.3 GB at 64k x 128^2) once per
-    # segment plus host-side O(nscan) loops (round-4 advisor finding).
-    # With this flag run() also skips the VMEM compile-retry backstop
-    # (the caller owns the slab count). Only meaningful with
-    # obj_slabs > 1.
-    obj_slabs_partitioned: bool = False
-    # The quantile partition's row windows, ((row_start, ...), ext) --
-    # produced by ops.slabs.partition_slabs (5th return) and threaded
-    # to every slab wrapper. A hashable tuple: it rides as part of this
-    # static options argument, so a new partition recompiles exactly
-    # when the windows change (they change only with the scan). None =
-    # legacy uniform k*(nz/D) rows.
-    obj_slab_rows: tuple | None = None
-    # Column count for 2-D quantile TILES (round-5 late): the in-kernel
-    # patch gather pays ~2x at >=1024-lane object widths (measured:
-    # 512-tall x 1024-wide runs 38.9 vs 75.0 iters/s with NO slabs --
-    # pure width), so wide objects split each y-group into x-quantile
-    # column windows too. obj_slabs counts ROW groups on input; after
-    # the partition the engine sees obj_slabs = rows * cols tile
-    # groups. 1 = rows only.
-    obj_slab_cols: int = 1
-    # Per-call frames-per-kernel-step override for the fused kernels
-    # (None = the measured tier default, pallas_fused._default_frames).
-    # Two uses (round 5): (a) the slab planner LOWERS it for very wide
-    # objects, where the P-proportional VMEM frame workspace is what
-    # overflows (2048^2 at 128^2 probes: the tier-default P=32 pick was
-    # Mosaic-rejected at every slab count; P=16 fits) -- run()'s
-    # compile-retry backstop halves it automatically; (b) explicit
-    # frames sweeps through the solver without the
-    # TIKEJAX_FRAMES_PER_STEP env knob.
-    kernel_frames: int | None = None
 
 
 def _lbfgs_memory(direction: str) -> int:
@@ -368,8 +254,12 @@ def zero_cg_state(psi, options: CGOptions):
 
 
 def _rdot(a, b):
-    """Real inner product of (complex) arrays viewed as real vectors."""
-    return jnp.real(jnp.vdot(a, b))
+    """Real inner product of (complex) arrays viewed as real vectors.
+
+    Pinned to full float32 precision: these products set every Dai-Yuan
+    beta, line-search slope and L-BFGS pair, and a GPU's default matmul
+    precision may run them in TF32 (about three decimal digits)."""
+    return jnp.real(jnp.vdot(a, b, precision=lax.Precision.HIGHEST))
 
 
 def _psum(x, axis_name):
@@ -465,15 +355,6 @@ def _chunked(x, nchunks):
     return jax.tree.map(one, x)
 
 
-def _base_complex(f_base):
-    """Frozen base farplane as complex for the non-fused (+) paths: it
-    may arrive as an (re, im) f32 pair (the fused kernels consume the
-    pair directly -- see pallas_fused._base_split)."""
-    if isinstance(f_base, (tuple, list)):
-        return lax.complex(f_base[0], f_base[1])
-    return f_base
-
-
 def _quad_stats(fpsi, fd):
     """Per-pixel quadratic coefficients of |fpsi + gamma*fd|^2 summed over
     modes: returns (a, b, c) real arrays of shape (ntheta, nscan, nd, nd)."""
@@ -507,6 +388,7 @@ class _Engine:
                 f"nchunks ({o.nchunks}) must divide nscan ({g.nscan})")
         if o.model not in likelihoods.MODELS:
             raise ValueError(f"unknown model {o.model!r}")
+        diffraction.resolve_kernel(o.kernel)
         if o.precondition not in ("illum", "illum_lowk", "max", "none"):
             raise ValueError(f"unknown precondition {o.precondition!r}; "
                              "expected 'illum', 'illum_lowk', 'max', or "
@@ -524,28 +406,12 @@ class _Engine:
             if o.lowk_boost < 0 or not (0 < o.lowk_frac <= 0.5):
                 raise ValueError("lowk_boost must be >= 0 and lowk_frac "
                                  "in (0, 0.5]")
-        if o.memory not in ("auto", "materialized", "frameless"):
-            raise ValueError(f"unknown memory policy {o.memory!r}")
         if o.linesearch not in ("auto", "interp", "backtracking",
                                 "parabolic"):
             raise ValueError(f"unknown linesearch {o.linesearch!r}; "
                              "expected 'auto', 'interp', 'backtracking',"
                              " or 'parabolic'")
-        # Resolve 'auto' against the kernel tier: the interpolation
-        # step's slightly smaller accepted steps measurably slow
-        # deep-residual descent on the accuracy tiers.
-        self.ls = o.linesearch
-        if self.ls == "auto":
-            # The asymmetric mx/hx tiers count as deep: their OBJECTIVE
-            # runs at the mp/hp tier, and the objective accuracy is what
-            # made interp's smaller steps hurt the deep tiers.
-            deep = diffraction.resolve_kernel(o.kernel) in (
-                "fused_mp", "fused_hp", "fused_mx", "fused_hx")
-            self.ls = "backtracking" if deep else "interp"
-        if o.merged_linesearch not in ("auto", "off"):
-            raise ValueError(f"unknown merged_linesearch "
-                             f"{o.merged_linesearch!r}; expected 'auto' "
-                             "or 'off'")
+        self.ls = "interp" if o.linesearch == "auto" else o.linesearch
         self.lbfgs_m = _lbfgs_memory(o.direction)
         if o.step_policy not in ("auto", "track", "regrow"):
             raise ValueError(f"unknown step_policy {o.step_policy!r}; "
@@ -560,99 +426,27 @@ class _Engine:
         self.g = g
         self.o = o
         self.minf_fn, self.resid_fn = likelihoods.get_model(o.model)
-        # 'auto' -> frameless on the fused kernels (round-2-final
-        # measurement): the merged gradient/line-search applies only to
-        # the frameless regime, and with it frameless wins at EVERY
-        # size tested -- 3.5x at a 134 MB farplane (1582 vs 452
-        # iters/s), 3x at 540 MB (292 vs 98), and even at 33 MB (931 vs
-        # 841; pre-merged it lost there 1292 vs 2864). 'materialized'
-        # stays selectable; non-fused kernels have no frameless path.
-        self.frameless = (o.memory == "frameless" or
-                          (o.memory == "auto" and
-                           diffraction.resolve_kernel(
-                               o.kernel).startswith("fused")))
-        # Merged gradient/line-search mode (see CGOptions.merged_linesearch).
-        self.merged = (o.merged_linesearch == "auto" and self.frameless
-                       and o.nchunks == 1 and not o.recover_prb
-                       and self.ls in ("backtracking", "interp")
-                       and not o.fused_linesearch
-                       and diffraction.resolve_kernel(
-                           o.kernel).startswith("fused"))
-        # Object row-slab streaming (ops.slabs) for objects whose fused
-        # kernels overflow VMEM: only defined for the frameless fused
-        # path on a slab-partitioned problem (run() applies the host
-        # partition; mesh axes shard the problem their own way).
-        if o.obj_slabs < 1:
-            raise ValueError(f"obj_slabs must be >= 1, got {o.obj_slabs}")
-        if o.obj_slabs > 1:
-            if not diffraction.resolve_kernel(o.kernel).startswith(
-                    "fused"):
-                raise ValueError("obj_slabs > 1 requires a fused kernel "
-                                 "tier (the XLA/hybrid paths are not "
-                                 "VMEM-capped)")
-            if not self.frameless:
-                raise ValueError("obj_slabs > 1 requires the frameless "
-                                 "memory policy (memory='auto' or "
-                                 "'frameless')")
-            if o.nchunks != 1:
-                raise ValueError("obj_slabs > 1 already streams the "
-                                 "positions slab-by-slab; combine with "
-                                 "nchunks == 1")
-            if (o.axis_name is not None or o.obj_axis_name is not None
-                    or o.theta_axis_name is not None):
-                raise ValueError("obj_slabs composes with single-device "
-                                 "runs only; on a mesh use "
-                                 "parallel.run_tiled (P3 object tiling)")
-            if o.obj_slab_rows is None and g.nz % o.obj_slabs:
-                # Legacy uniform rows need the divisibility; the
-                # quantile partition (obj_slab_rows set) does not.
-                raise ValueError(f"obj_slabs ({o.obj_slabs}) must divide "
-                                 f"nz ({g.nz})")
-        # Split-operator refinement mode (mixed precision): psi is a small
-        # correction delta on top of a frozen base whose farplane f_base
-        # was computed ONCE with an accurate kernel. The per-iteration
-        # operator errors then scale with ||delta||, so the fast 'fused'
-        # tier drives residuals far below its own standalone floor.
+        # Split-operator refinement mode: psi is a small correction delta
+        # on top of a frozen base object whose farplane f_base was
+        # computed once (solvers.tiered). nchunks > 1 streams the base
+        # farplane through the scan chunks alongside data/scan.
         self.f_base = f_base
-        if f_base is not None:
-            # nchunks > 1 streams the base farplane through the scan
-            # chunks alongside data/scan (grad_pass/quad_pass) -- the
-            # split refinement then works in the memory regime where
-            # even the frozen base cannot ride as one kernel input
-            # (round-4, VERDICT r3 missing #3).
-            if self.frameless and diffraction.resolve_kernel(
-                    o.kernel) in ("xla", "pallas"):
-                raise ValueError("frameless split-operator mode needs the "
-                                 "fused kernels")
-            if o.recover_prb:
-                raise ValueError("split-operator mode (f_base) does not "
-                                 "support joint probe recovery; rebase "
-                                 "the probe between segments instead")
+        if f_base is not None and o.recover_prb:
+            raise ValueError("split-operator mode (f_base) does not "
+                             "support joint probe recovery; rebase "
+                             "the probe between segments instead")
 
     # -- operator shorthands ------------------------------------------------
 
     def _fwd(self, psi, scan, prb):
         return diffraction.fwd_raw(psi, scan, prb, self.g.ndet, self.o.kernel)
 
-    def _fwd_obj(self, psi, scan, prb):
+    def _fwd_obj(self, psi, scan, prb, f_base=None):
         """Farplane of the OBJECT estimate: G psi, plus the frozen base
         farplane in split-operator mode (direction farplanes stay _fwd:
-        the operator is linear, only the object carries the offset). On
-        the fused paths the base add is an in-kernel epilogue (no extra
-        HBM pass)."""
-        if self.f_base is None:
-            return self._fwd(psi, scan, prb)
-        resolved = diffraction.resolve_kernel(self.o.kernel)
-        if resolved.startswith("fused"):
-            from tikejax.ops import pallas_fused
-            from tikejax.ops import patches as _patches
-
-            scan_i = _patches.scan_to_int(scan)
-            return pallas_fused.fwd(
-                psi, scan_i, prb, self.g.ndet,
-                precision=diffraction._fused_precision(resolved),
-                base=self.f_base, frames=self.o.kernel_frames)
-        return self._fwd(psi, scan, prb) + _base_complex(self.f_base)
+        the operator is linear, only the object carries the offset)."""
+        fp = self._fwd(psi, scan, prb)
+        return fp if f_base is None else fp + f_base
 
     def _adj(self, farp, scan, prb):
         return diffraction.adj_raw(farp, scan, prb, self.g.nz, self.g.n,
@@ -662,11 +456,21 @@ class _Engine:
         return diffraction.adj_probe_raw(farp, scan, psi, self.g.nprb,
                                          self.o.kernel)
 
-    def _fwd_probe_dir(self, psi, scan, dprb):
-        """Farplane of a probe-direction perturbation (fwd is linear in
-        the probe, so this is G evaluated with dprb as the probe)."""
-        return diffraction.fwd_raw(psi, scan, dprb, self.g.ndet,
-                                   self.o.kernel)
+    def _fwd_dir(self, psi, prb, scan, dpsi, dprb):
+        """Farplane of the search direction: G dpsi for an object step,
+        G(psi) evaluated with dprb as the probe for a probe step (fwd is
+        linear in each)."""
+        if dpsi is not None:
+            return self._fwd(dpsi, scan, prb)
+        return self._fwd(psi, scan, dprb)
+
+    def _chunks(self, scan, data):
+        """Scan-chunked (scan, data[, f_base]) inputs for lax.scan."""
+        n = self.o.nchunks
+        xs = (_chunked(scan, n), _chunked(data, n))
+        if self.f_base is not None:
+            xs += (_chunked(self.f_base, n),)
+        return xs
 
     # -- gradient passes ----------------------------------------------------
 
@@ -680,105 +484,29 @@ class _Engine:
         chunks with accumulated outputs; the full farplane never exists
         and fpsi is None -- in materialised mode fpsi is returned so the
         line-search pass can reuse it instead of re-running the forward
-        model. On the fused kernel path the object-gradient case runs the
-        residual + objective + adjoint-scatter as ONE Pallas pass over the
-        farplane (pallas_fused.adj_residual).
+        model.
         """
         o = self.o
         fpsi = None
         gpsi = gprb = None
         if o.nchunks == 1:
-            resolved = diffraction.resolve_kernel(o.kernel)
-            if want_psi and not want_prb and resolved.startswith("fused"):
-                from tikejax.ops import pallas_fused
-                from tikejax.ops import patches as _patches
-
-                scan_i = _patches.scan_to_int(scan)
-                prec = diffraction._fused_precision(resolved)
-                adj_prec = diffraction._fused_adj_precision(resolved)
-                if self.frameless:
-                    # Gradient mega-kernel: fwd + residual + objective +
-                    # adjoint in one pass; the farplane never exists in
-                    # HBM (large nscan x nmodes regime). In split mode
-                    # the frozen base farplane rides in as a kernel
-                    # input. Oversized objects stream over row slabs
-                    # (ops.slabs) -- same kernel, VMEM-sized sub-object.
-                    if o.obj_slabs > 1:
-                        from tikejax.ops import slabs as _slabs
-
-                        gpsi, f0 = _slabs.grad_fused_slabs(
-                            psi, data, scan_i, prb, self.g.ndet, o.model,
-                            o.obj_slabs, precision=prec,
-                            base=self.f_base, adj_precision=adj_prec,
-                            frames=o.kernel_frames,
-                            slab_rows=o.obj_slab_rows)
-                    else:
-                        gpsi, f0 = pallas_fused.grad_fused(
-                            psi, data, scan_i, prb, self.g.ndet, o.model,
-                            precision=prec, base=self.f_base,
-                            adj_precision=adj_prec,
-                            frames=o.kernel_frames)
-                else:
-                    # Materialize G(psi) once (reused by the line-search
-                    # statistics pass), then the fused gradient tail
-                    # (whose only DFT work is the IDFT: adjoint tier).
-                    fpsi = self._fwd_obj(psi, scan, prb)
-                    gpsi, f0 = pallas_fused.adj_residual(
-                        fpsi, data, scan_i, prb, self.g.nz, self.g.n,
-                        o.model, precision=adj_prec)
-            elif (want_prb and not want_psi and self.frameless and
-                  diffraction.resolve_kernel(o.kernel).startswith("fused")):
-                # Probe-gradient mega-kernel (joint recovery in the
-                # frameless regime).
-                from tikejax.ops import pallas_fused
-                from tikejax.ops import patches as _patches
-
-                scan_i = _patches.scan_to_int(scan)
-                prec = diffraction._fused_precision(
-                    diffraction.resolve_kernel(o.kernel))
-                adj_prec = diffraction._fused_adj_precision(
-                    diffraction.resolve_kernel(o.kernel))
-                if o.obj_slabs > 1:
-                    from tikejax.ops import slabs as _slabs
-
-                    gprb, f0 = _slabs.grad_prb_fused_slabs(
-                        psi, data, scan_i, prb, self.g.ndet, o.model,
-                        o.obj_slabs, precision=prec,
-                        adj_precision=adj_prec,
-                        frames=o.kernel_frames,
-                        slab_rows=o.obj_slab_rows)
-                else:
-                    gprb, f0 = pallas_fused.grad_prb_fused(
-                        psi, data, scan_i, prb, self.g.ndet, o.model,
-                        precision=prec, adj_precision=adj_prec,
-                        frames=o.kernel_frames)
-            else:
-                fpsi = self._fwd_obj(psi, scan, prb)
+            fpsi = self._fwd_obj(psi, scan, prb, self.f_base)
+            with jax.named_scope("likelihood"):
                 f0 = self.minf_fn(fpsi, data)
                 resid = self.resid_fn(fpsi, data)
-                if want_psi:
-                    gpsi = self._adj(resid, scan, prb)
-                if want_prb:
-                    gprb = self._adj_probe(resid, scan, psi)
+            if want_psi:
+                gpsi = self._adj(resid, scan, prb)
+            if want_prb:
+                gprb = self._adj_probe(resid, scan, psi)
         else:
-            scan_c = _chunked(scan, o.nchunks)
-            data_c = _chunked(data, o.nchunks)
-            # Split-operator mode streams the frozen base farplane
-            # through the chunks too: the chunk forward sees only a
-            # (nscan/nchunks)-sized base slice at a time.
-            fb_c = (_chunked(self.f_base, o.nchunks)
-                    if self.f_base is not None else None)
-
             def step(carry, inp):
                 f_acc, gpsi_acc, gprb_acc = carry
-                if fb_c is None:
-                    sc, dc = inp
-                    fp = self._fwd(psi, sc, prb)
-                else:
-                    sc, dc, fb = inp
-                    fp = self._fwd(psi, sc, prb) + _base_complex(fb)
-                f_acc = f_acc + self.minf_fn(fp, dc)
-                r = self.resid_fn(fp, dc)
+                sc, dc = inp[:2]
+                fp = self._fwd_obj(psi, sc, prb,
+                                   inp[2] if len(inp) > 2 else None)
+                with jax.named_scope("likelihood"):
+                    f_acc = f_acc + self.minf_fn(fp, dc)
+                    r = self.resid_fn(fp, dc)
                 if want_psi:
                     gpsi_acc = gpsi_acc + self._adj(r, sc, prb)
                 if want_prb:
@@ -791,9 +519,8 @@ class _Engine:
                 (jnp.zeros((), real_dtype),
                  jnp.zeros_like(psi) if want_psi else jnp.zeros(()),
                  jnp.zeros_like(prb) if want_prb else jnp.zeros(())))
-            xs = ((scan_c, data_c) if fb_c is None
-                  else (scan_c, data_c, fb_c))
-            (f0, gpsi, gprb), _ = lax.scan(step, init, xs)
+            (f0, gpsi, gprb), _ = lax.scan(step, init,
+                                           self._chunks(scan, data))
             if not want_psi:
                 gpsi = None
             if not want_prb:
@@ -822,90 +549,20 @@ class _Engine:
         """
         o = self.o
         assert (dpsi is None) != (dprb is None)
-
-        def fwd_pair(sc, fb=None):
-            """Chunk forward pair; ``fb`` is this chunk's slice of the
-            frozen base farplane in split-operator streaming mode."""
-            fp = self._fwd(psi, sc, prb)
-            if fb is not None:
-                fp = fp + _base_complex(fb)
-            fd = (self._fwd(dpsi, sc, prb)
-                  if dpsi is not None else self._fwd(psi, sc, dprb))
-            return fp, fd
-
-        if (self.f_base is not None and fpsi is None
-                and not self.frameless and o.nchunks == 1):
-            raise ValueError("split-operator mode requires the "
-                             "materialized object farplane from grad_pass")
         if o.nchunks == 1:
-            resolved = diffraction.resolve_kernel(o.kernel)
-            if resolved.startswith("fused"):
-                # Both farplanes are produced frame-by-frame in VMEM and
-                # reduced in place -- neither touches HBM.
-                from tikejax.ops import pallas_fused
-                from tikejax.ops import patches as _patches
-
-                scan_i = _patches.scan_to_int(scan)
-                prec = diffraction._fused_precision(resolved)
-                if self.frameless or fpsi is None:
-                    # Fully frameless backtracking: each objective
-                    # evaluation is ONE fused fwd+reduce pass -- nothing
-                    # farplane-sized (not even the (a, b, c) statistics,
-                    # which are 3 real farplanes: 13 GB at 64k x 128^2)
-                    # ever touches HBM. FLOPs are re-spent per halving;
-                    # frameless mode is MXU-bound by design.
-                    if o.obj_slabs > 1:
-                        from tikejax.ops import slabs as _slabs
-
-                        def minf_eval(p, b):
-                            return _slabs.minf_fused_slabs(
-                                p, data, scan_i, b, self.g.ndet, o.model,
-                                o.obj_slabs, precision=prec,
-                                base=self.f_base,
-                                frames=o.kernel_frames,
-                                slab_rows=o.obj_slab_rows)
-                    else:
-                        def minf_eval(p, b):
-                            return pallas_fused.minf_fused(
-                                p, data, scan_i, b, self.g.ndet, o.model,
-                                precision=prec, base=self.f_base,
-                                frames=o.kernel_frames)
-                    if dpsi is not None:
-                        def f_of(gamma):
-                            cand = psi + gamma.astype(psi.dtype) * dpsi
-                            return _psum(minf_eval(cand, prb),
-                                         _scalar_axes(o))
-                    else:
-                        def f_of(gamma):
-                            cand = prb + gamma.astype(prb.dtype) * dprb
-                            return _psum(minf_eval(psi, cand),
-                                         _scalar_axes(o))
-
-                    return f_of
-                elif dpsi is not None:
-                    a, b, c = pallas_fused.fwd_quad_stats(
-                        dpsi, scan_i, prb, fpsi, precision=prec)
-                else:
-                    a, b, c = pallas_fused.fwd_quad_stats(
-                        psi, scan_i, dprb, fpsi, precision=prec)
-            else:
-                fp = (fpsi if fpsi is not None
-                      else self._fwd_obj(psi, scan, prb))
-                fd = (self._fwd(dpsi, scan, prb)
-                      if dpsi is not None else self._fwd(psi, scan, dprb))
+            fp = (fpsi if fpsi is not None
+                  else self._fwd_obj(psi, scan, prb, self.f_base))
+            fd = self._fwd_dir(psi, prb, scan, dpsi, dprb)
+            with jax.named_scope("likelihood"):
                 a, b, c = _quad_stats(fp, fd)
 
             def f_of(gamma):
-                return _psum(
-                    _minf_of_gamma(o.model, a, b, c, data, gamma),
-                    _scalar_axes(o))
+                with jax.named_scope("likelihood"):
+                    return _psum(
+                        _minf_of_gamma(o.model, a, b, c, data, gamma),
+                        _scalar_axes(o))
 
             return f_of
-
-        scan_c = _chunked(scan, o.nchunks)
-        data_c = _chunked(data, o.nchunks)
-        fb_c = (_chunked(self.f_base, o.nchunks)
-                if self.f_base is not None else None)
 
         # Streaming: cannot hold (a, b, c) for all positions without
         # defeating the point, but they are 3 real arrays vs 2 complex
@@ -914,17 +571,14 @@ class _Engine:
         # in-jit backtracking possible at all; each backtracking step reads
         # the statistics, not the model.
         def step(carry, inp):
-            if fb_c is None:
-                sc, dc = inp
-                fp, fd = fwd_pair(sc)
-            else:
-                sc, dc, fb = inp
-                fp, fd = fwd_pair(sc, fb)
-            a, b, c = _quad_stats(fp, fd)
-            return carry, (a, b, c)
+            sc = inp[0]
+            fp = self._fwd_obj(psi, sc, prb, inp[2] if len(inp) > 2 else None)
+            fd = self._fwd_dir(psi, prb, sc, dpsi, dprb)
+            with jax.named_scope("likelihood"):
+                return carry, _quad_stats(fp, fd)
 
-        xs = ((scan_c, data_c) if fb_c is None
-              else (scan_c, data_c, fb_c))
+        xs = self._chunks(scan, data)
+        data_c = xs[1]
         _, (a_c, b_c, c_c) = lax.scan(step, None, xs)
 
         def f_of(gamma):
@@ -933,8 +587,10 @@ class _Engine:
                 return carry + _minf_of_gamma(o.model, a, b, c, dc,
                                               gamma), None
 
-            total, _ = lax.scan(red, _pvary(jnp.zeros(()), _scalar_axes(o)),
-                                (a_c, b_c, c_c, data_c))
+            with jax.named_scope("likelihood"):
+                total, _ = lax.scan(
+                    red, _pvary(jnp.zeros(()), _scalar_axes(o)),
+                    (a_c, b_c, c_c, data_c))
             return _psum(total, _scalar_axes(o))
 
         return f_of
@@ -981,12 +637,11 @@ class _Engine:
         backtrack starts the next search at its ACCEPTED step instead
         (ceiling 1; outright accepts and failures restart at 1) --
         the idea was to save the rejection evaluation when the natural
-        step is persistently too long, but it measured decisively
-        WORSE on the headline 1e-6 refinement (tail_ab lbfgstrack256:
-        36.2 s / 1247 iters vs 23.5 s / 1048 default -- the smaller
-        warm starts slow descent more than the saved evals gain, the
-        same qualitative result as the Dai-Yuan 'track' ablation).
-        Kept selectable; the default stays the natural step."""
+        step is persistently too long, but it took more iterations to
+        reach 1e-6 on the headline problem (1247 against 1048: the
+        smaller warm starts slow descent more than the saved
+        evaluations gain). Kept selectable; the default stays the
+        natural step."""
         one = jnp.ones((), dtype)
         if self.step_policy() == "track":
             # Clamp to the natural-step ceiling 1: with step0 > 1 the
@@ -1000,36 +655,6 @@ class _Engine:
             with_hist = one
         return jnp.where(count > 0, with_hist,
                          self._gamma0(dtype, gamma_prev, gamma0_prev))
-
-    def use_fused_linesearch(self) -> bool:
-        """Fused one-pass candidate evaluation applies in materialised mode
-        on the Pallas kernel paths (kernel != 'xla' after resolution).
-        Excluded in the frameless regime: it needs both farplanes in HBM,
-        which is exactly what frameless avoids."""
-        return (self.o.fused_linesearch and self.o.nchunks == 1 and
-                not self.frameless and
-                diffraction.resolve_kernel(self.o.kernel) != "xla")
-
-    def line_search_all(self, fpsi, fd, data, f0, gamma0):
-        """One-pass line search: evaluate the whole backtracking candidate
-        set {gamma0 * shrink^k} with the fused Pallas kernel and pick the
-        first decrease (identical policy to the while_loop backtracking,
-        but the entire search costs a single memory pass)."""
-        from tikejax.ops import pallas_linesearch
-
-        o = self.o
-        dtype = gamma0.dtype
-        # max_halvings + 1 candidates, matching the while_loop backtracking
-        # which evaluates gamma0 plus up to max_halvings halved steps.
-        shrinks = jnp.asarray(o.step_shrink, jnp.float32) ** jnp.arange(
-            o.max_halvings + 1, dtype=jnp.float32)
-        gammas = gamma0.astype(jnp.float32) * shrinks
-        fvals = pallas_linesearch.ls_objectives(fpsi, fd, data, gammas,
-                                                o.model)
-        fvals = _psum(fvals, _scalar_axes(o))
-        ok = fvals <= f0
-        idx = jnp.argmax(ok)
-        return jnp.where(jnp.any(ok), gammas[idx], 0.0).astype(dtype)
 
     def _interp_gamma(self, gamma0, f0, fg0, fp0):
         """Safeguarded quadratic-interpolation candidate after the first
@@ -1046,10 +671,8 @@ class _Engine:
                        / (2.0 * jnp.where(denom > 0, denom, 1.0)),
                        gamma0 * o.step_shrink)
         # Tight safeguard [shrink^2, shrink] * gamma0: the model may
-        # only skip ONE halving, never take a tiny step -- a loose
-        # 0.1*gamma0 lower bound measured slower DEEP descent (the
-        # noisy model under-steps near the floor: fused_mp residual
-        # 3.7e-4 vs 7.6e-5 at 240 iterations).
+        # only skip ONE halving, never take a tiny step (a noisy model
+        # under-steps near the residual floor).
         lo = o.step_shrink * o.step_shrink * gamma0
         return jnp.clip(gi, lo,
                         o.step_shrink * gamma0).astype(gamma0.dtype)
@@ -1125,15 +748,21 @@ class _Engine:
             return _psum(_rdot(_mask_halo(a, o), _mask_halo(b, o)), axes)
         return _psum(_rdot(a, b), o.theta_axis_name)
 
-    def dy_direction(self, grad, grad_prev, d_prev, kind="psi"):
+    def dy_direction(self, grad, grad_prev, d_prev, restart, kind="psi"):
         """d = -g + beta * d_prev, beta = ||g||^2 / <d_prev, g - g_prev>_R
         (Dai-Yuan 1999), with a zero-division guard that yields steepest
-        descent on the first iteration (d_prev = 0). The inner products
-        are global (psum-ed over whichever mesh axes shard the arrays),
-        so beta is a global scalar."""
+        descent on the first iteration (d_prev = 0). ``restart`` (the
+        previous line search failed, so the iterate did not move) forces
+        steepest descent: the gradient is then recomputed at the same
+        point, and on a GPU the atomic scatter-add makes g - g_prev
+        rounding noise instead of zero, which would blow beta up along
+        the direction that just failed. The inner products are global
+        (psum-ed over whichever mesh axes shard the arrays), so beta is
+        a global scalar."""
         num = self._dot(grad, grad, kind)
         den = self._dot(d_prev, grad - grad_prev, kind)
-        beta = jnp.where(den != 0, num / jnp.where(den != 0, den, 1.0), 0.0)
+        ok = jnp.logical_and(den != 0, jnp.logical_not(restart))
+        beta = jnp.where(ok, num / jnp.where(den != 0, den, 1.0), 0.0)
         return -grad + beta.astype(grad.dtype) * d_prev
 
     # -- L-BFGS direction (direction='lbfgs[:m]') --------------------------
@@ -1148,7 +777,7 @@ class _Engine:
         # theta (or object-tiling) mesh the (s, y) pairs pushed into the
         # ring vary per device, and an unvarying zero init would fail
         # the while_loop carry typing (surfaced by the 2-D-mesh deep
-        # driver, round 4). Scalar slots stay replicated (their updates
+        # driver). Scalar slots stay replicated (their updates
         # come from psum-ed global dots).
         z = _pvary(z, _obj_vary_axes(self.o))
         return (z, z, jnp.zeros((m,), real_dtype),
@@ -1234,9 +863,7 @@ def _precondition(gpsi, prb):
 def _lowk_symbol(nz, n, boost, frac):
     """Real positive Fourier symbol 1 + boost*k0^2/(k0^2 + |k|^2) with
     k0 = frac * Nyquist; self-adjoint and positive-definite as a real-
-    linear operator, so it is a valid CG preconditioner factor.
-    (Zeroing the DC boost -- the gauge direction -- was measured WORSE,
-    250.6 s vs 112.7 s on the headline deep run; see BASELINE.md.)"""
+    linear operator, so it is a valid CG preconditioner factor."""
     fy = jnp.fft.fftfreq(nz)[:, None]
     fx = jnp.fft.fftfreq(n)[None, :]
     k2 = fy ** 2 + fx ** 2
@@ -1315,7 +942,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     # ~2x the gaussian amplitude misfit near the optimum (see
     # likelihoods.poisson_perfect_minf). Without the offset the old
     # gaussian-scale formula clamped to 0 for the whole Poisson run and
-    # tripped target_residual after one iteration (VERDICT r2 weak #1).
+    # tripped target_residual after one iteration.
     sum_data = _psum(jnp.sum(jnp.maximum(data, 0.0)), _scalar_axes(o))
     if o.model == "poisson":
         minf_offset = _psum(likelihoods.poisson_perfect_minf(data),
@@ -1333,8 +960,8 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
 
     if o.precondition in ("illum", "illum_lowk") and not o.recover_prb:
         # Object-only runs: the probe never changes, so the
-        # illumination map (an FFT convolution + a 16k-element delta
-        # scatter -- several ms on TPU) is loop-INVARIANT. Precompute
+        # illumination map (an FFT convolution + a delta scatter over
+        # all positions) is loop-INVARIANT. Precompute
         # the divisor once instead of per accepted candidate; XLA does
         # not hoist it out of the fori/while loop body on its own.
         _illum_denom = _illum_denominator(prb0, scan_i, geometry.nz,
@@ -1345,9 +972,7 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
             # (self-adjoint under the real inner product, so CG theory
             # still applies). Two 2-D FFTs of the object per
             # preconditioner application -- negligible next to the
-            # per-frame kernel work. Motivation: the round-3 spectral
-            # diagnostic (docs/design.md) found 84% of the early deep-
-            # tail error below ~1/16 Nyquist.
+            # per-frame work.
             _lowk = _lowk_symbol(geometry.nz, geometry.n, o.lowk_boost,
                                  o.lowk_frac)
 
@@ -1391,22 +1016,16 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                                       gam0_prev)
         else:
             lb = ()
-            d_psi = eng.dy_direction(gpsi, g_psi_prev, d_psi)
+            d_psi = eng.dy_direction(gpsi, g_psi_prev, d_psi,
+                                     restart=gam_prev <= 0)
             gamma0 = eng._gamma0(real_dtype, gam_prev, gam0_prev)
-        if eng.use_fused_linesearch():
-            fp = fpsi if fpsi is not None else eng._fwd_obj(psi, scan, prb)
-            fd = eng._fwd(d_psi, scan, prb)
-            gamma = eng.line_search_all(fp, fd, data, f0, gamma0)
-        else:
-            f_of = eng.quad_pass(psi, prb, scan, data, dpsi=d_psi,
-                                 fpsi=fpsi)
-            # Directional derivative of the objective along d: for a
-            # real objective of a complex field, f'(0) = 2 Re<grad, d>
-            # with the Wirtinger gradient (RAW: the preconditioner
-            # rescales grad, not f). Verified against finite
-            # differences.
-            fp0 = 2.0 * eng._dot(gpsi_raw, d_psi, "psi")
-            gamma = eng.line_search(f_of, f0, gamma0, fp0)
+        f_of = eng.quad_pass(psi, prb, scan, data, dpsi=d_psi, fpsi=fpsi)
+        # Directional derivative of the objective along d: for a real
+        # objective of a complex field, f'(0) = 2 Re<grad, d> with the
+        # Wirtinger gradient (RAW: the preconditioner rescales grad, not
+        # f). Verified against finite differences.
+        fp0 = 2.0 * eng._dot(gpsi_raw, d_psi, "psi")
+        gamma = eng.line_search(f_of, f0, gamma0, fp0)
         psi = psi + gamma.astype(psi.dtype) * d_psi
         g_psi_prev = gpsi
 
@@ -1420,19 +1039,13 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
                                                     want_psi=False,
                                                     want_prb=True)
             gprb = precond_prb(gprb_raw, psi)
-            d_prb = eng.dy_direction(gprb, g_prb_prev, d_prb, kind="prb")
+            d_prb = eng.dy_direction(gprb, g_prb_prev, d_prb,
+                                     restart=gam_p_prev <= 0, kind="prb")
             gamma0_p = eng._gamma0(real_dtype, gam_p_prev, gam0_p_prev)
-            if eng.use_fused_linesearch():
-                fp2 = (fpsi2 if fpsi2 is not None
-                       else eng._fwd(psi, scan, prb))
-                fdp = eng._fwd_probe_dir(psi, scan, d_prb)
-                gamma_p = eng.line_search_all(fp2, fdp, data, f0p,
-                                              gamma0_p)
-            else:
-                f_of_p = eng.quad_pass(psi, prb, scan, data, dprb=d_prb,
-                                       fpsi=fpsi2)
-                fp0_p = 2.0 * eng._dot(gprb_raw, d_prb, "prb")
-                gamma_p = eng.line_search(f_of_p, f0p, gamma0_p, fp0_p)
+            f_of_p = eng.quad_pass(psi, prb, scan, data, dprb=d_prb,
+                                   fpsi=fpsi2)
+            fp0_p = 2.0 * eng._dot(gprb_raw, d_prb, "prb")
+            gamma_p = eng.line_search(f_of_p, f0p, gamma0_p, fp0_p)
             prb = prb + gamma_p.astype(prb.dtype) * d_prb
             g_prb_prev = gprb
 
@@ -1458,98 +1071,14 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
         return (psi, prb, d_psi, g_psi_prev, d_prb, g_prb_prev, gamma,
                 gamma0, gamma_p, gamma0_p, *lb, metrics)
 
-    def body_merged(i, st):
-        """Merged-mode iteration: every line-search candidate is
-        evaluated with the gradient mega-kernel, so the accepted
-        candidate's (minf, grad) pair seeds the next iteration and the
-        separate per-iteration gradient pass disappears (~1 fused pass
-        per iteration at the steady-state ~1 eval/iter). Same candidate
-        sequence and simple-decrease policy as the classic search."""
-        (psi, prb, d_prev, g_prev, g_cur, g_raw, f_cur, gam_prev,
-         gam0_prev, *lb_state, metrics) = st
-        if eng.lbfgs_m:
-            lb = eng.lbfgs_push(tuple(lb_state),
-                                gam_prev.astype(psi.dtype) * d_prev,
-                                g_cur - g_prev, gam_prev > 0)
-            d = eng.lbfgs_direction(g_cur, lb)
-            gamma0 = eng.lbfgs_gamma0(real_dtype, lb[3], gam_prev,
-                                      gam0_prev)
-        else:
-            lb = ()
-            d = eng.dy_direction(g_cur, g_prev, d_prev)
-            gamma0 = eng._gamma0(real_dtype, gam_prev, gam0_prev)
-
-        def eval_cand(gamma):
-            cand = psi + gamma.astype(psi.dtype) * d
-            fc, gc, _, _ = eng.grad_pass(cand, prb, scan, data,
-                                         want_psi=True, want_prb=False)
-            return fc, gc
-
-        fc0, gc0 = eval_cand(gamma0)
-        st_ls = (gamma0, fc0, gc0, jnp.zeros((), jnp.int32))
-        if eng.ls == "interp" and o.max_halvings > 0:
-            # Directional derivative f'(0) = 2 Re<grad_raw, d> (the
-            # preconditioner rescales grad, not f; factor 2 from the
-            # Wirtinger convention, verified vs finite differences).
-            fp0 = 2.0 * eng._dot(g_raw, d, "psi")
-
-            def do_interp(stt):
-                gi = eng._interp_gamma(gamma0, f_cur, stt[1], fp0)
-                fci, gci = eval_cand(gi)
-                return gi, fci, gci, jnp.ones((), jnp.int32)
-
-            st_ls = lax.cond(fc0 > f_cur, do_interp, lambda s: s, st_ls)
-
-        def cond(stt):
-            _, fc, _, k = stt
-            return jnp.logical_and(fc > f_cur, k < o.max_halvings)
-
-        def lbody(stt):
-            gamma, fc, gc, k = stt
-            gamma = gamma * o.step_shrink
-            fc, gc = eval_cand(gamma)
-            return gamma, fc, gc, k + 1
-
-        gamma, fc, gc, _ = lax.while_loop(cond, lbody, st_ls)
-        ok = fc <= f_cur
-        gamma = jnp.where(ok, gamma, jnp.zeros_like(gamma))
-        if eng.lbfgs_m:
-            lb = eng.lbfgs_reset_on_stall(lb, gamma)
-        psi = psi + gamma.astype(psi.dtype) * d
-        gc_pc = precond_psi(gc, prb)
-        g_next = jnp.where(ok, gc_pc, g_cur)
-        g_next_raw = jnp.where(ok, gc, g_raw)
-        f_next = jnp.where(ok, fc, f_cur)
-
-        residual = jnp.sqrt(
-            jnp.maximum(f_cur - minf_offset, 0.0)
-            / sum_data).astype(real_dtype)
-        metrics = {
-            "minf": metrics["minf"].at[i].set(f_cur.astype(real_dtype)),
-            "residual": metrics["residual"].at[i].set(residual),
-            "gamma": metrics["gamma"].at[i].set(gamma.astype(real_dtype)),
-            "grad_norm": metrics["grad_norm"].at[i].set(jnp.sqrt(
-                eng._dot(g_cur, g_cur, "psi")).astype(real_dtype)),
-            "gamma_prb": metrics["gamma_prb"],
-        }
-        if o.verbose_every > 0:
-            def _print(_):
-                jax.debug.print(
-                    "iter {i}: minf={f:.6e} gamma={g:.4f}", i=i, f=f_cur,
-                    g=gamma)
-                return 0
-            lax.cond(i % o.verbose_every == 0, _print, lambda _: 0, 0)
-        return (psi, prb, d, g_cur, g_next, g_next_raw, f_next, gamma,
-                gamma0, *lb, metrics)
-
     zscal = jnp.zeros((), real_dtype)
     # L-BFGS ring buffers ride at the tail of the carry (just before
-    # metrics) in both layouts, so the cg_state slot indices and the
-    # st[-1] metrics access stay put. By default the ring is NOT
-    # carried across split segments (cg_init seeds one cross-segment
-    # curvature pair implicitly: the first push uses the carried
-    # (d, gamma, g)); with options.carry_lbfgs the full ring rides in
-    # the 8-tuple cg_state instead (measured A/B in BASELINE.md).
+    # metrics), so the cg_state slot indices and the st[-1] metrics
+    # access stay put. By default the ring is NOT carried across split
+    # segments (cg_init seeds one cross-segment curvature pair
+    # implicitly: the first push uses the carried (d, gamma, g)); with
+    # options.carry_lbfgs the full ring rides in the 8-tuple cg_state
+    # instead.
     ring_carry = bool(eng.lbfgs_m) and o.carry_lbfgs
     lb0 = eng.lbfgs_init(psi0, real_dtype) if eng.lbfgs_m else ()
     if cg_init is not None:
@@ -1581,20 +1110,9 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     else:
         d_in, g_in = jnp.zeros_like(psi0), jnp.zeros_like(psi0)
         gam_in, gam0_in = zscal, zscal
-    if eng.merged:
-        f_init, g_init, _, _ = eng.grad_pass(psi0, prb0, scan, data,
-                                             want_psi=True,
-                                             want_prb=False)
-        st0 = (psi0, prb0, d_in, g_in,
-               precond_psi(g_init, prb0), g_init,
-               f_init.astype(real_dtype), gam_in, gam0_in, *lb0,
-               metrics0)
-        body_fn = body_merged
-    else:
-        st0 = (psi0, prb0, d_in, g_in,
-               jnp.zeros_like(prb0), jnp.zeros_like(prb0),
-               gam_in, gam0_in, zscal, zscal, *lb0, metrics0)
-        body_fn = body
+    st0 = (psi0, prb0, d_in, g_in,
+           jnp.zeros_like(prb0), jnp.zeros_like(prb0),
+           gam_in, gam0_in, zscal, zscal, *lb0, metrics0)
     if o.target_residual > 0 or o.stop_on_stall > 0:
         # Early-exit loop: stop once the previous iteration's relative
         # residual reached the target, or after stop_on_stall
@@ -1624,24 +1142,21 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
 
         def wbody(carry):
             i, st = carry
-            return i + 1, body_fn(i, st)
+            return i + 1, body(i, st)
 
         iters_run, st_end = lax.while_loop(
             wcond, wbody, (jnp.zeros((), jnp.int32), st0))
     else:
-        st_end = lax.fori_loop(0, o.piter, body_fn, st0)
+        st_end = lax.fori_loop(0, o.piter, body, st0)
         iters_run = jnp.asarray(o.piter, jnp.int32)
     psi, prb, metrics = st_end[0], st_end[1], st_end[-1]
     metrics = dict(metrics, iters_run=iters_run)
     if o.carry_state:
-        # Terminal CG carry in BOTH layouts: slot 2 is the last search
-        # direction, slot 3 the (preconditioned) gradient that built it;
-        # the accepted gamma / its start sit at slots 7/8 (merged) or
-        # 6/7 (classic). Feed back via run_impl(cg_init=...).
-        if eng.merged:
-            cs = (st_end[2], st_end[3], st_end[7], st_end[8])
-        else:
-            cs = (st_end[2], st_end[3], st_end[6], st_end[7])
+        # Terminal CG carry: slot 2 is the last search direction, slot 3
+        # the (preconditioned) gradient that built it; the accepted gamma
+        # and its start sit at slots 6/7. Feed back via
+        # run_impl(cg_init=...).
+        cs = (st_end[2], st_end[3], st_end[6], st_end[7])
         if ring_carry:
             # The ring is the 4-slot block just before metrics.
             cs = cs + tuple(st_end[-5:-1])
@@ -1649,29 +1164,39 @@ def run_impl(geometry: Geometry, options: CGOptions, data, psi0, scan, prb0,
     return psi, prb, metrics
 
 
+# Options of earlier releases that selected the removed hand-written
+# kernels (fused line search, frameless and merged evaluation, object row
+# slabs, kernel frame counts). Passing one raises instead of being ignored.
+REMOVED_OPTIONS = ("fused_linesearch", "memory", "merged_linesearch",
+                   "obj_slabs", "obj_slabs_partitioned", "obj_slab_rows",
+                   "obj_slab_cols", "kernel_frames")
+
+
+def make_options(options: CGOptions | None = None, **kw) -> CGOptions:
+    """CGOptions from a base ``options`` (default: all defaults) with
+    keyword overrides -- the shared front of :func:`run`,
+    ``solvers.reconstruct`` and the ``parallel`` runners. A removed option
+    raises ValueError naming the removal."""
+    removed = sorted(set(kw) & set(REMOVED_OPTIONS))
+    if removed:
+        raise ValueError(
+            f"option(s) {removed} were removed together with the "
+            "hand-written kernels they selected; the XLA path needs none")
+    if options is None:
+        return CGOptions(**kw)
+    return dataclasses.replace(options, **kw) if kw else options
+
+
 def run(data, psi0, scan, prb0, geometry: Geometry,
         options: CGOptions | None = None, f_base=None, cg_init=None,
         **kw):
     """Reconstruct object (and optionally probe) from measured intensities.
 
-    The TPU-native counterpart of the reference's
+    The counterpart of the reference's
     ``solver.run(data, psi, scan, prb, piter, model, recover_prb)``
     (SURVEY.md SS3.1). Extra keyword arguments override CGOptions fields.
-
-    Kernel accuracy tiers (``kernel=``, see tikejax.ops.diffraction):
-    'fused' is the fastest per pass (~1e-3 operator error, residual
-    floor ~2e-3) but only wins short previews; 'fused_mp' (~8e-6) is
-    FASTER over any full trajectory (its cleaner gradients keep the
-    line search short -- round-2 A/B 56.2 vs 41.5 iters/s); 'fused_mx'
-    (mp forward/objective + single-pass gradient IDFT) matches
-    fused_mp's trajectory exactly at 3/4 the MXU work (round-3 A/B
-    73.5 vs 55.3 iters/s) and is the no-target default; 'fused_hp'
-    ~4e-7 for the deepest residuals ('fused_hx' its asymmetric
-    counterpart; the multi-pass tiers use Karatsuba complex matmuls).
-    ``kernel='auto'`` picks by ``target_residual`` when one is set
-    (deep targets escalate the tier, shallow ones select the preview
-    tier) and 'fused_mx' otherwise; for time-to-deep-residual
-    reconstruction prefer :func:`reconstruct`, which chains the tiers.
+    For time-to-deep-residual reconstruction prefer
+    :func:`tikejax.solvers.reconstruct`.
 
     Returns:
       (psi, prb, metrics) where metrics is a dict of per-iteration arrays
@@ -1682,160 +1207,21 @@ def run(data, psi0, scan, prb0, geometry: Geometry,
       normalised generalized KL divergence under poisson (comparable
       scale near the optimum; likelihoods.poisson_perfect_minf).
     """
-    if options is None:
-        options = CGOptions(**kw)
-    elif kw:
-        options = dataclasses.replace(options, **kw)
-    options = normalize_options(options)
-
-    # Oversized objects: the fused kernels hold the whole object in
-    # VMEM, which caps its size (BASELINE.md round 4 "LIMIT FOUND").
-    # Auto-select row-slab streaming (ops.slabs, CGOptions.obj_slabs)
-    # for single-device runs instead of letting the kernel guard raise,
-    # and apply the host-side owner partition of the positions. The
-    # VMEM fit model is an estimate (Mosaic's scheduler owns the
-    # truth), so a scoped-vmem compile rejection of a marginal pick is
-    # caught and retried at the next dividing slab count -- each slab
-    # is nearly free on the zero-copy window path.
-    no_mesh = (options.axis_name is None and
-               options.obj_axis_name is None and
-               options.theta_axis_name is None)
-    slab_eligible = (no_mesh and options.nchunks == 1
-                     and options.memory != "materialized"
-                     and diffraction.resolve_kernel(
-                         options.kernel).startswith("fused"))
-    if not slab_eligible or options.obj_slabs_partitioned:
-        # obj_slabs_partitioned: the caller (the deep driver) already
-        # applied the owner partition once for the whole reconstruction
-        # -- go straight to the solver on the partitioned problem.
-        return _run_cg_jit(geometry, options, data, psi0, scan, prb0,
-                           f_base, cg_init)
-
-    from tikejax.ops import pallas_fused, slabs as _slabs
-
-    resolved = diffraction.resolve_kernel(options.kernel)
-    fit_kw = dict(planes=4, nmodes=prb0.shape[-3], ndet=geometry.ndet,
-                  precision=diffraction._fused_precision(resolved),
-                  joint=options.recover_prb)
-    nslab = options.obj_slabs
-    if options.obj_slab_cols < 1:
-        raise ValueError("obj_slab_cols must be >= 1")
-    kframes = options.kernel_frames
-    memo_key = (geometry.nz, geometry.n, geometry.nprb, geometry.ndet,
-                fit_kw["nmodes"], fit_kw["precision"], fit_kw["joint"])
-    auto_planned = False
-    if nslab == 1 and kframes is None and memo_key in _SLAB_PLAN_MEMO:
-        # A prior call on this config already walked the compile-retry
-        # ladder (possibly from a plan the fit model wrongly accepted):
-        # reuse its working plan OUTRIGHT -- failed compiles are not
-        # cached by jit, so re-walking the ladder would re-pay them on
-        # EVERY call (run_all config 3 measured 6.9 iters/s instead of
-        # ~40 from exactly that, round 5).
-        auto_planned = True
-        nslab, kframes = _SLAB_PLAN_MEMO[memo_key]
-    elif nslab == 1 and not pallas_fused.obj_planes_fit(
-            geometry.nz, geometry.n, geometry.nprb, 4,
-            extra_bytes=pallas_fused.frames_workspace_bytes(
-                fit_kw["nmodes"], geometry.ndet, geometry.nprb,
-                fit_kw["precision"], joint=fit_kw["joint"],
-                frames=kframes)):
-        auto_planned = True
-        nslab, kframes = _slabs.plan_slabs(geometry.nz, geometry.n,
-                                           geometry.nprb,
-                                           frames=kframes, **fit_kw)
-    geo0, scan0, data0, f_base0 = geometry, scan, data, f_base
-    retries = 0
-    while True:
-        options = dataclasses.replace(options, obj_slabs=nslab,
-                                      kernel_frames=kframes)
-        if nslab > 1 or options.obj_slab_cols > 1:
-            if isinstance(scan0, jax.core.Tracer):
-                raise ValueError(
-                    "obj_slabs needs concrete scan positions for the "
-                    "host-side owner partition; call run() outside jit "
-                    "for slab-streamed objects")
-            eff = (kframes if kframes is not None
-                   else pallas_fused._default_frames(fit_kw["precision"]))
-            align = 32 * eff // math.gcd(32, eff)
-            scan, data, f_base, s_per, rows = _slabs.partition_slabs(
-                scan0, data0, geo0, nslab, f_base=f_base0, align=align,
-                n_cols=options.obj_slab_cols)
-            geometry = dataclasses.replace(geo0, nscan=scan.shape[1])
-            options = dataclasses.replace(
-                options, obj_slab_rows=rows,
-                obj_slabs=nslab * options.obj_slab_cols)
-        try:
-            out = _run_cg_jit(geometry, options, data, psi0, scan,
-                              prb0, f_base, cg_init)
-            if ((auto_planned or retries)
-                    and (nslab > 1 or kframes is not None)):
-                # Remember ANY non-default working plan -- including a
-                # frames-only lowering at obj_slabs=1, which the retry
-                # ladder discovers when the fit model is optimistic
-                # (e.g. joint 128^2-probe kernels at the P=32 tier
-                # default).
-                _SLAB_PLAN_MEMO[memo_key] = (nslab, kframes)
-            return out
-        except jax.errors.JaxRuntimeError as e:
-            msg = str(e).lower()
-            # Mosaic/libtpu wording for scoped-memory overflow varies
-            # across versions ('vmem', 'scoped memory', 'scratch
-            # limit'); match broadly so a wording change degrades to a
-            # wasted retry, not a silently disabled backstop -- and cap
-            # the retries so classification drift cannot loop through
-            # many multi-minute recompiles (round-4 advisor finding).
-            vmem_like = any(w in msg for w in ("vmem", "scoped",
-                                               "scratch"))
-            if (not vmem_like or retries >= 4
-                    or isinstance(scan0, jax.core.Tracer)):
-                raise
-            retries += 1
-            # Retry policy (round 5, informed by the 2048^2 probe where
-            # ADDING slabs never converged -- the P-proportional frame
-            # workspace was the overflow): first HALVE frames (frees
-            # 2.2 MB at P=32->16 for a measured ~5% MXU cost), then add
-            # slabs at the floor P.
-            eff = (kframes if kframes is not None
-                   else pallas_fused._default_frames(fit_kw["precision"]))
-            if eff > 8:
-                kframes = max(8, eff // 2)
-            else:
-                nslab, kframes = _slabs.plan_slabs(
-                    geo0.nz, geo0.n, geo0.nprb, start=nslab + 1,
-                    frames=kframes, **fit_kw)
-            import warnings
-
-            warnings.warn(
-                f"fused kernel exceeded Mosaic's scoped VMEM at "
-                f"obj_slabs={options.obj_slabs}, frames="
-                f"{options.kernel_frames}; retrying with obj_slabs="
-                f"{nslab}, frames={kframes} (the fit model is an "
-                "estimate)", stacklevel=2)
+    options = normalize_options(make_options(options, **kw))
+    return _run_cg_jit(geometry, options, data, psi0, scan, prb0, f_base,
+                       cg_init)
 
 
 def normalize_options(options: CGOptions) -> CGOptions:
-    """Resolve 'auto' kernel selection against the residual target (done
-    host-side, before the options become a static jit argument), and
-    normalize flag interactions."""
-    if options.kernel == "auto":
-        k = diffraction.resolve_kernel_for_target(
-            "auto", options.target_residual)
-        options = dataclasses.replace(options, kernel=k)
+    """Resolve 'auto' kernel selection (done host-side, before the options
+    become a static jit argument), and normalize flag interactions."""
+    options = dataclasses.replace(
+        options, kernel=diffraction.resolve_kernel(options.kernel))
     # carry_lbfgs extends the carried cg_state with the L-BFGS ring; on
-    # its own there is no cg_state to extend, so it implies carry_state
-    # (it was previously silently inert -- round-3 advisor finding).
+    # its own there is no cg_state to extend, so it implies carry_state.
     if options.carry_lbfgs and not options.carry_state:
         options = dataclasses.replace(options, carry_state=True)
     return options
 
 
 _run_cg_jit = jax.jit(run_impl, static_argnums=(0, 1))
-
-# Working (obj_slabs, kernel_frames) plans learned by the Mosaic
-# compile-retry backstop, keyed by the VMEM-fit inputs. The fit model
-# is an estimate and the 2048^2 probe showed the retry ladder firing 3
-# times before landing (round 5) -- without this memo EVERY run() call
-# on such a config would re-pay the failed compiles, and the deep
-# driver (whose pre-partitioned stages skip the retry) could not
-# benefit from what a prior run learned.
-_SLAB_PLAN_MEMO: dict = {}

@@ -3,8 +3,7 @@
 from tikejax.utils.hostio import (cfull, cones, czeros, scalar, to_device,
                                   to_host)
 from tikejax.utils.profiling import (Timer, device_sync, summarize_metrics,
-                                     sync_overhead_seconds, trace)
+                                     trace)
 
 __all__ = ["to_host", "to_device", "scalar", "cfull", "cones", "czeros",
-           "Timer", "trace", "summarize_metrics", "device_sync",
-           "sync_overhead_seconds"]
+           "Timer", "trace", "summarize_metrics", "device_sync"]
